@@ -2,8 +2,8 @@
 //
 // Role: the host-side counterpart of the device library. Large sparse
 // matrices are typically *built* on the host (file ingest, regridding
-// weight generation) before being shipped to TPU HBM; doing the
-// sort/dedup/normalize there in C++ keeps the TPU free for compute and is
+// weight generation) before being shipped to device memory; doing the
+// sort/dedup/normalize there in C++ keeps the device free for compute and is
 // ~10-50x faster than doing it row-by-row in Python. Mirrors the semantic
 // contract of the reference consolidate (/root/reference/slib/spsparse/
 // algorithm.hpp:251-319): stable lexicographic sort by sort_order, drop

@@ -1,11 +1,11 @@
 // Native sparse LU for spsparse-tpu: Gilbert-Peierls left-looking
 // factorization with partial pivoting over CSC input.
 //
-// Role in the TPU-first architecture: factorization is sequential
+// Role in the architecture: factorization is sequential
 // pointer-chasing (symbolic DFS reachability + per-column sparse
 // triangular solves) and belongs on the host, exactly like the
 // reference's host-side assembly loops; the *solves* against the
-// resulting factors are what run on TPU (level-scheduled fixed-point in
+// resulting factors are what run on the device (level-scheduled fixed-point in
 // solvers/direct.py). No counterpart exists in the reference
 // (SURVEY.md §2 — spsparse has no direct solver); the API contract is
 // scipy.sparse.linalg.splu's (SuperLU), implemented from the published

@@ -62,7 +62,7 @@ if __name__ == "__main__":
 
     import jax
 
-    if not os.environ.get("SPSPARSE_USE_TPU"):
+    if not os.environ.get("SPSPARSE_USE_GPU"):
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                    + " --xla_force_host_platform_device_count=8")
         jax.config.update("jax_platforms", "cpu")

@@ -1,5 +1,5 @@
 """Row-partitioned SpMV over a device mesh (runs on a virtual 8-device
-CPU mesh anywhere; the same code drives a real TPU slice).
+CPU mesh anywhere; the same code drives a mesh of real GPUs).
 
 Run: python examples/distributed_spmv.py
 """
@@ -8,10 +8,10 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=8")
 import jax
 # Platform choice must happen BEFORE first backend use (calling
-# jax.devices()/default_backend() first would pin the platform — see
-# CLAUDE.md). Opt into real multi-chip hardware explicitly; the default
-# is the virtual 8-device CPU mesh, which runs anywhere.
-if not os.environ.get("SPSPARSE_EXAMPLE_TPU"):
+# jax.devices()/default_backend() first would pin the platform). Opt
+# into real multi-GPU hardware explicitly (SPSPARSE_USE_GPU=1); the
+# default is the virtual 8-device CPU mesh, which runs anywhere.
+if not os.environ.get("SPSPARSE_USE_GPU"):
     jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp

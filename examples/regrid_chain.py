@@ -17,9 +17,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-# Default to the CPU backend (set SPSPARSE_USE_TPU=1 for the real chip):
+# Default to the CPU backend (set SPSPARSE_USE_GPU=1 for a real GPU):
 # examples are functional demos, not benchmarks.
-if not os.environ.get("SPSPARSE_USE_TPU"):
+if not os.environ.get("SPSPARSE_USE_GPU"):
     import jax
 
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")

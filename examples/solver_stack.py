@@ -3,7 +3,7 @@
 Builds an ill-scaled SPD banded system, then solves it four ways —
 CG, Jacobi-PCG, block-Jacobi-PCG, and Chebyshev (with Lanczos-estimated
 spectral bounds) — and differentiates through the solve with the
-implicit-gradient wrapper. Runs on CPU or TPU:
+implicit-gradient wrapper. Runs on CPU or GPU:
 
     python examples/solver_stack.py
 """

@@ -1,11 +1,12 @@
-"""spsparse-tpu: a TPU-native sparse linear-algebra framework.
+"""spsparse-tpu: a sparse linear-algebra framework on JAX for NVIDIA GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
 spsparse C++ template library (rank-N COO arrays, duplicate-consolidating
 sort, sorted-merge joins, the diag-scaled sparse multiply chain, SpMV/SpMM,
-NetCDF I/O) plus the capabilities the TPU target demands: static-shape
-padded arrays that travel through ``jit``/``vmap``/``shard_map``, CSR/ELL
-kernel views, Pallas kernels for the hot paths, and multi-chip row-partitioned
+NetCDF I/O) plus the capabilities an accelerator target demands:
+static-shape padded arrays that travel through ``jit``/``vmap``/
+``shard_map``, CSR/ELL/DIA/dense-block views, Hopper Pallas kernels where
+they beat XLA (``core.backend``), and multi-device row-partitioned
 execution over ``jax.sharding.Mesh``.
 """
 

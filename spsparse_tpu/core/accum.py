@@ -3,7 +3,7 @@
 The reference's algorithms emit results through an *accumulator protocol* —
 any object with ``.add(indices, val)`` (/root/reference/slib/spsparse/
 accum.hpp:12-24) — so one algorithm can write to a COO array, a dense array,
-a permuted view, or a running scalar. In a functional TPU framework the same
+a permuted view, or a running scalar. In a functional JAX framework the same
 role is played by pure post-processing transforms over an entry stream
 ``(indices, vals, valid)``; composing them costs nothing after XLA fusion.
 

@@ -114,7 +114,7 @@ def coo_binop(a: SparseCOO, b: SparseCOO, f: Callable[[Array, Array], Array],
     underneath :func:`coo_multiply` / :func:`coo_maximum` /
     :func:`coo_minimum`.
 
-    TPU formulation (no scatters, no per-key searchsorted probes): each
+    Sort-based formulation (no scatters, no per-key searchsorted probes): each
     operand is consolidated (duplicates summed — scipy's canonicalization
     before ``_binopt``), the two entry streams are concatenated with an
     operand tag and stable-sorted by (packed index word(s), tag); each

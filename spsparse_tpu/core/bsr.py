@@ -1,8 +1,8 @@
-"""BSR (block sparse row) storage — dense blocks on the MXU.
+"""BSR (block sparse row) storage — dense blocks on the matrix units.
 
 Mandated by the north star (BASELINE.json: "COO arrays plus CSR/BSR
 views"); no reference counterpart. BSR stores a sparse pattern of *dense*
-``bh x bw`` tiles. On TPU this is the format that turns SpMM into real MXU
+``bh x bw`` tiles. This is the format that turns SpMM into dense matmul
 work: each stored tile contributes a ``(bh, bw) @ (bw, N)`` matmul, and with
 ``bw >= 128`` the right-hand gathers move full-lane-width contiguous chunks
 instead of 1-row slivers — both the FLOP path and the memory path are then

@@ -1,6 +1,6 @@
 """``SparseCOO`` — the rank-N sparse array at the heart of spsparse-tpu.
 
-TPU-native re-design of the reference's ``VectorCooArray``
+Array-native re-design of the reference's ``VectorCooArray``
 (/root/reference/slib/spsparse/VectorCooArray.hpp:8-360). The reference stores
 struct-of-arrays ``std::vector``s that grow dynamically; XLA requires static
 shapes, so a ``SparseCOO`` is a *padded* buffer:

@@ -1,11 +1,12 @@
-"""DIA (diagonal) storage — the gather-free TPU format for banded matrices.
+"""DIA (diagonal) storage — the gather-free format for banded matrices.
 
-No reference counterpart (the reference has only COO); this is a TPU-first
-addition: for matrices whose nonzeros live on a bounded set of diagonals
-(the BASELINE.md config-2 family and most stencil/regridding operators),
-storing one contiguous array per diagonal turns SpMV into shifted
-multiply-adds — no gather, no scatter, pure VPU/HBM-streaming work at
-~8 bytes/nnz instead of the ~12+ of ELL/CSR.
+No reference counterpart (the reference has only COO); this is an
+addition of this library: for matrices whose nonzeros live on a bounded
+set of diagonals (the BASELINE.md config-2 family and most
+stencil/regridding operators), storing one contiguous array per diagonal
+turns SpMV into shifted multiply-adds — no gather, no scatter, pure
+memory-streaming work at ~4 bytes/nnz of data instead of the ~8+ of
+ELL/CSR.
 
 ``offsets`` are static (part of the pytree treedef) so XLA sees fixed
 shifts; ``data[d, i]`` holds ``A[i, i + offsets[d]]`` (row-oriented DIA).

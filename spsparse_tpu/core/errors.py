@@ -1,6 +1,6 @@
 """Core definitions: duplicate policies, error handling, zero/NaN tests.
 
-TPU-native re-design of the reference's L0 core layer
+Array-native re-design of the reference's L0 core layer
 (/root/reference/slib/spsparse/spsparse.hpp:25-103, spsparse.cpp:12-31):
 
 * ``DuplicatePolicy`` — what consolidation does with duplicate indices

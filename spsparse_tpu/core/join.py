@@ -1,4 +1,4 @@
-"""Vectorized sorted-merge joins — the xiter protocol, TPU style.
+"""Vectorized sorted-merge joins — the xiter protocol, array style.
 
 The reference's ``Join2Xiter``/``Join3Xiter``
 (/root/reference/slib/spsparse/xiter.hpp:146-282 with the shared advance
@@ -71,8 +71,7 @@ def intersect_mask(keys1, n1, keys2, n2, sentinel):
 
 def _compact(match, positions, pads, cap):
     """Compact matched positions to the front (stable single-key sort —
-    not an XLA scatter, which runs per-element on TPU; see
-    consolidate.compact_select). ``pads[s]`` is stream ``s``'s buffer
+    not an XLA scatter; see consolidate.compact_select). ``pads[s]`` is stream ``s``'s buffer
     length, written into padding slots so OOB-gather modes drop them."""
     from .consolidate import compact_select
 

@@ -1,10 +1,10 @@
-"""Sort-based joins: TPU-fast replacements for per-element gather/scatter.
+"""Sort-based joins: replacements for per-element gather/scatter.
 
-XLA on TPU executes arbitrary gathers and scatters one element at a time
-(~0.09 Gelem/s measured on v5e) while ``lax.sort`` streams at 0.7-2
-Gelem/s — so any "gather payloads by key" operation is 10-100x faster
-phrased as one stable merge sort + a vectorized forward fill + one
-compaction sort. This module provides that phrasing:
+On devices whose gathers and scatters run one element at a time, any
+"gather payloads by key" operation is faster phrased as one stable merge
+sort + a vectorized forward fill + one compaction sort. GPUs and CPUs
+gather natively, so the library defaults to the gather phrasing there
+(:func:`use_join_default`); this module provides the sort phrasing:
 
 ``merge_fill_compact(keys_e, payloads_e, keys_q, payloads_q, n_out)``
     joins each *query* to the last *entry* whose key is <= the query's
@@ -16,7 +16,7 @@ compaction sort. This module provides that phrasing:
 
 The reference's iterator-based Gustavson walk
 (multiply_sparse.hpp:152-248) does these lookups with pointer chasing;
-this is the TPU-native equivalent.
+this is the sort-based array equivalent.
 """
 
 from __future__ import annotations
@@ -34,9 +34,11 @@ __all__ = ["forward_fill_marked", "merge_fill_compact",
 
 
 def use_join_default() -> bool:
-    """True when sort-based joins beat per-element gathers on the default
-    backend (TPU: gathers ~0.09 Gelem/s; CPU: gathers are fast)."""
-    return jax.default_backend() == "tpu"
+    """Whether ``method=None`` lookups use the sort-based join instead of
+    per-element gathers. False: GPUs and CPUs gather natively, so the
+    ``searchsorted`` form is the default everywhere; the join stays
+    available by name."""
+    return False
 
 
 def forward_fill_marked(marker, payloads: Sequence[Array]):
@@ -76,8 +78,7 @@ def merge_fill_compact(keys_e, payloads_e: Sequence[Array],
     streams (entries keyed ``2k``, queries ``2k+1`` so entries precede
     equal-key queries), a vectorized forward fill
     (:func:`forward_fill_marked`), and one compaction sort
-    (:func:`spsparse_tpu.core.consolidate.compact_select`). ~10-100x
-    over per-element XLA gathers on TPU (probes/probe_spgemm_stages_r2*.py).
+    (:func:`spsparse_tpu.core.consolidate.compact_select`).
     """
     from .consolidate import compact_select
 
@@ -145,9 +146,8 @@ def row_ptr_from_sorted_rows(rows, nrows: int, *, method: str = "auto"):
     index with ``rows[p] >= r``.
 
     ``searchsorted`` phrases this as nrows+1 binary searches — log2(cap)
-    rounds of per-element gathers, ~8 ms at 131K entries x 64K rows on
-    v5e (probes/probe_join_stages_r2b.py); the join phrasing is one
-    merge + fill + compact (~0.8 ms)."""
+    rounds of per-element gathers; the join phrasing is one merge + fill
+    + compact."""
     if method == "auto":
         method = "join" if use_join_default() else "searchsorted"
     rows = jnp.asarray(rows)

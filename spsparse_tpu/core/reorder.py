@@ -1,10 +1,9 @@
 """Bandwidth-reducing reorderings — the bridge from *scattered* sparse
 matrices to the framework's fastest kernels.
 
-The DIA streaming kernel (:mod:`spsparse_tpu.ops.pallas_dia`) runs at
-~89% of HBM bandwidth but needs a *banded* matrix; general scattered
-matrices fall back to tiled/gather kernels 10-100x slower
-(docs/PERFORMANCE.md). Many matrices in the reference's domain
+The fused DIA path (:func:`spsparse_tpu.ops.spmv_dia`) streams the
+matrix with no gathers but needs a *banded* matrix; general scattered
+matrices fall back to gather layouts. Many matrices in the reference's domain
 (regridding meshes, finite-element/volume couplings) are banded *up to a
 relabeling of the unknowns* — reverse Cuthill-McKee recovers that
 labeling from the sparsity pattern alone. ``rcm_permutation`` +

@@ -1,6 +1,6 @@
 """Row/column structure over sorted COO arrays: dim_beginnings + CSR views.
 
-TPU-native re-design of the reference's row-offset machinery
+Array-native re-design of the reference's row-offset machinery
 (/root/reference/slib/spsparse/algorithm.hpp:59-233):
 
 * :func:`dim_beginnings` — on a sorted array, the offset of each new value of
@@ -14,7 +14,7 @@ TPU-native re-design of the reference's row-offset machinery
 * :class:`SparseCSR` — the full fixed-row-count CSR view (``row_ptr`` of
   length ``nrows+1`` via ``searchsorted``). COO + row pointers *is* the CSR
   format in this framework (SURVEY §2). The reference has no explicit CSR
-  type; this is the TPU-friendly access path for SpMV/SpMM kernels.
+  type; this is the vectorized access path for SpMV/SpMM kernels.
 """
 
 from __future__ import annotations
@@ -123,9 +123,8 @@ class SparseCSR:
 
     def row_ids(self) -> Array:
         """Expand ``row_ptr`` back to a per-entry row-id vector (cap,)."""
-        # row of entry p = number of row starts <= p, minus 1; sort-join
-        # phrasing on TPU (searchsorted = log(cap) serial gather rounds
-        # there — see core.joinfill).
+        # row of entry p = number of row starts <= p, minus 1 (see
+        # core.joinfill for the two phrasings).
         from .joinfill import row_ids_from_row_ptr
         return row_ids_from_row_ptr(self.row_ptr, self.cap)
 
@@ -176,8 +175,8 @@ class SparseELL:
 
     ``cols (nrows, max_row_nnz)`` int32 with sentinel ``ncols`` padding and
     ``vals (nrows, max_row_nnz)`` with zero padding. This regular layout is
-    the most TPU-friendly SpMV format: the gather + row-reduction vectorize
-    cleanly over the 8x128 VPU with no data-dependent control flow.
+    the most vectorizable SpMV format: the gather + row-reduction run with
+    no data-dependent control flow.
     """
 
     cols: Array = dataclasses.field(metadata=dict(static=False))

@@ -1,11 +1,10 @@
-"""Tiled COO — general sparse matrices as MXU work (no per-entry gather).
+"""Tiled COO — general sparse matrices grouped into 128x128 tiles.
 
-TPU XLA executes random per-element gathers at ~10ns/element (measured on
-this pod: 86 Melem/s), which caps gather-based SpMV at ~0.1 Gnnz/s — three
-orders of magnitude under the memory roofline. The TPU-native answer for
-*general* (unstructured) sparsity is to restructure the computation so
-indexing happens through one-hot matmuls on the MXU, where a 128-wide
-gather/scatter costs two tile matmuls instead of 128 scalar loads:
+The tiled layout is the source of the dense-block SpMM layout
+(:mod:`spsparse_tpu.ops.block_spmm`) and of the tiled SpGEMM. Its own
+plain product (:mod:`spsparse_tpu.ops.tiled_ops`) indexes through one-hot
+matmuls, where a 128-wide gather/scatter costs two tile matmuls instead
+of 128 scalar loads:
 
     y_tile += OneHot(rows)^T @ (vals * (OneHot(cols) @ x_tile))
 
@@ -17,7 +16,7 @@ at whole-tile granularity: x tile rows are fetched by a block-row gather
 (tiny index count), y tiles are segment-summed by tile row (tiles are kept
 row-major sorted).
 
-This format is this framework's own design; the reference has no TPU
+This format is this framework's own design; the reference has no
 counterpart to cite.
 """
 

@@ -3,7 +3,7 @@
 The reference validates eagerly through its pluggable error handler
 (bounds on ``add``, sortedness in ``dim_beginnings``, inner-dimension
 matches — SURVEY §5). Host-side entry points here do the same, but code
-running *under jit* cannot raise; this module provides the TPU-era
+running *under jit* cannot raise; this module provides the jit-era
 equivalent via ``jax.experimental.checkify``: functional checks that
 travel with the computation and surface as errors when the caller chooses
 to pay for them (debug mode), and compile to nothing otherwise.

@@ -2,25 +2,32 @@
 
 Virtual-device meshes cannot measure real comm/compute overlap, so the
 scaling figures reported by ``bench.py --all`` (config 5) and asserted by
-``__graft_entry__.dryrun_multichip`` come from a roofline-style model with
-the measured single-chip streaming numbers plugged in. The model is
-deliberately simple and stated in full here so the judge can audit it:
+``__graft_entry__.dryrun_multichip`` come from a roofline-style model. The
+model is deliberately simple and stated in full here so it can be
+audited:
 
 * ring SpMV/SpMM (``dist_spmv_bucketed`` / ``dist_spmm_bucketed``): P ring
   steps; step ``s`` overlaps the compute on bucket ``s`` (streaming the
   local entries once per full rotation) with the ``ppermute`` of one x/X
-  block over ICI. Per-device step time = max(compute_step, comm_step);
+  block over the card-to-card link. Per-device step time = max(compute_step, comm_step);
   single-device time = the same total compute with no comm.
 * weak scaling: per-device work (nnz_local, rows_local) held constant as P
   grows, so efficiency = t(1 device) / t(P devices per-device time).
 
-Default bandwidths are TPU v5e book values (HBM 819 GB/s; ICI 1-D ring
-~90 GB/s per direction); override with measured numbers where available.
+Default bandwidths are the H200's published peaks from
+:data:`spsparse_tpu.utils.roofline.PEAKS` (HBM 4.8 TB/s; NVLink 450 GB/s
+each way); override with measured numbers where available.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from ..utils.roofline import PEAKS
+
+_H200 = PEAKS["NVIDIA H200"]
+HBM_GBS = _H200.hbm_bytes_s / 1e9
+LINK_GBS = _H200.link_bytes_s / 1e9
 
 __all__ = ["RingModel", "ring_weak_scaling_efficiency",
            "halo_weak_scaling_efficiency", "a2a_weak_scaling_efficiency",
@@ -36,8 +43,8 @@ class RingModel:
     n_rhs: int = 1            # dense RHS columns (1 = SpMV)
     bytes_per_entry: float = 8.0   # cols + vals streamed per entry
     dtype_bytes: float = 4.0
-    hbm_gbs: float = 819.0
-    ici_gbs: float = 90.0
+    hbm_gbs: float = HBM_GBS
+    link_gbs: float = LINK_GBS
 
     def compute_time(self) -> float:
         """One full pass over the local entries + x/y traffic (seconds)."""
@@ -48,7 +55,7 @@ class RingModel:
     def step_comm_time(self) -> float:
         """One ppermute of an x/X block to the ring neighbour."""
         blk_bytes = self.rows_local * self.n_rhs * self.dtype_bytes
-        return blk_bytes / (self.ici_gbs * 1e9)
+        return blk_bytes / (self.link_gbs * 1e9)
 
     def time(self, n_devices: int) -> float:
         """Per-device wall time for the P-step overlapped ring."""
@@ -65,7 +72,8 @@ def ring_weak_scaling_efficiency(nnz_local: int, rows_local: int,
                                  **kw) -> float:
     """Weak-scaling efficiency of the overlapped ring at P devices:
     ``t(1) / t(P)`` with per-device workload held constant. 1.0 = perfect;
-    degrades only when a block's ICI transfer outruns one step's compute."""
+    degrades only when a block's link transfer outruns one step's
+    compute."""
     m = RingModel(nnz_local=nnz_local, rows_local=rows_local, n_rhs=n_rhs,
                   **kw)
     return m.time(1) / m.time(n_devices)
@@ -75,8 +83,8 @@ def halo_weak_scaling_efficiency(nnz_local: int, rows_local: int,
                                  halo: int, n_devices: int, *,
                                  n_rhs: int = 1, bytes_per_entry: float = 8.0,
                                  dtype_bytes: float = 4.0,
-                                 hbm_gbs: float = 819.0,
-                                 ici_gbs: float = 90.0) -> float:
+                                 hbm_gbs: float = HBM_GBS,
+                                 link_gbs: float = LINK_GBS) -> float:
     """Weak-scaling efficiency of :func:`~spsparse_tpu.dist.dist_spmv_halo`.
 
     Comm is two ``halo``-element neighbour transfers regardless of P, so
@@ -91,7 +99,7 @@ def halo_weak_scaling_efficiency(nnz_local: int, rows_local: int,
     bytes_local = (nnz_local * bytes_per_entry
                    + 2 * rows_local * n_rhs * dtype_bytes)
     t_compute = bytes_local / (hbm_gbs * 1e9)
-    t_halo = 2 * halo * n_rhs * dtype_bytes / (ici_gbs * 1e9)
+    t_halo = 2 * halo * n_rhs * dtype_bytes / (link_gbs * 1e9)
     return t_compute / (t_compute + t_halo)
 
 
@@ -100,8 +108,8 @@ def a2a_weak_scaling_efficiency(nnz_local: int, rows_local: int,
                                 n_rhs: int = 1,
                                 bytes_per_entry: float = 8.0,
                                 dtype_bytes: float = 4.0,
-                                hbm_gbs: float = 819.0,
-                                ici_gbs: float = 90.0) -> float:
+                                hbm_gbs: float = HBM_GBS,
+                                link_gbs: float = LINK_GBS) -> float:
     """Weak-scaling efficiency of
     :func:`~spsparse_tpu.dist.spmv_a2a.dist_spmv_a2a`.
 
@@ -110,15 +118,12 @@ def a2a_weak_scaling_efficiency(nnz_local: int, rows_local: int,
     the ring's ``(P-1) * rows_local``. Owner-side gather traffic
     (``footprint * (4 + dtype)`` through HBM, symmetric send≈receive) is
     charged to compute; the all_to_all itself is conservatively serial
-    with compute. Meets >=80% iff
-    ``footprint <= 0.25 * t_compute * ici_bw / (n_rhs * dtype)`` — for
-    the config-2 workload (11 nnz/row, 1M rows/device) that is a
-    footprint of ~0.7M values/device. Footprint-bounded operators
+    with compute. :func:`a2a_footprint_for_target` gives the largest
+    footprint that still meets a target. Footprint-bounded operators
     (regridding: footprint ~ local coupling width) qualify at any P; a
     UNIFORM-random matrix's footprint is ``~min(nnz_local, ncols)``
-    (:func:`uniform_footprint`) which honestly cannot meet the target —
-    ~0.2 at P=64 for config 2c — though it still beats the ring ~5x
-    there (ring: 0.04)."""
+    (:func:`uniform_footprint`), which cannot meet an 80% target, though
+    it still beats the ring several-fold at large P."""
     if n_devices <= 1:
         return 1.0
     bytes_local = (nnz_local * bytes_per_entry
@@ -126,7 +131,7 @@ def a2a_weak_scaling_efficiency(nnz_local: int, rows_local: int,
     t_compute = bytes_local / (hbm_gbs * 1e9)
     # owner-side gather of the outgoing footprint (index + value reads)
     t_gather = footprint_local * (4.0 + dtype_bytes) * n_rhs / (hbm_gbs * 1e9)
-    t_comm = footprint_local * n_rhs * dtype_bytes / (ici_gbs * 1e9)
+    t_comm = footprint_local * n_rhs * dtype_bytes / (link_gbs * 1e9)
     return t_compute / (t_compute + t_gather + t_comm)
 
 
@@ -134,8 +139,8 @@ def a2a_footprint_for_target(nnz_local: int, rows_local: int, *,
                              target: float = 0.8, n_rhs: int = 1,
                              bytes_per_entry: float = 8.0,
                              dtype_bytes: float = 4.0,
-                             hbm_gbs: float = 819.0,
-                             ici_gbs: float = 90.0) -> int:
+                             hbm_gbs: float = HBM_GBS,
+                             link_gbs: float = LINK_GBS) -> int:
     """Largest per-device footprint that still meets ``target`` weak
     scaling under :func:`a2a_weak_scaling_efficiency` (binary search on
     the closed-form denominator)."""
@@ -144,7 +149,7 @@ def a2a_footprint_for_target(nnz_local: int, rows_local: int, *,
     t_compute = bytes_local / (hbm_gbs * 1e9)
     slack = t_compute * (1.0 / target - 1.0)
     per_val = (n_rhs * ((4.0 + dtype_bytes) / (hbm_gbs * 1e9)
-                        + dtype_bytes / (ici_gbs * 1e9)))
+                        + dtype_bytes / (link_gbs * 1e9)))
     return int(slack / per_val)
 
 

@@ -1,13 +1,14 @@
 """Multi-host glue: process initialization + per-host partition ownership.
 
-A multi-host TPU slice runs one process per host; collectives span all of
+A multi-host cluster runs one process per host; collectives span all of
 them once ``jax.distributed.initialize`` has run. These helpers wire that
 into the row-partitioned containers and the sharded checkpoint writer so a
 pod-slice program is::
 
     from spsparse_tpu.dist import multihost as mh
 
-    mh.initialize()                        # env-driven on TPU pods
+    mh.initialize(coordinator_address="host0:1234",
+                  num_processes=2, process_id=0)
     mesh = mh.pod_mesh("x")
     part = partition_rows(A, mesh.devices.size)
     ...
@@ -31,8 +32,10 @@ __all__ = ["initialize", "pod_mesh", "my_partitions", "is_multiprocess"]
 
 
 def initialize(**kwargs) -> None:
-    """``jax.distributed.initialize`` with TPU-pod env autodiscovery;
-    safe to call when already initialized or single-process."""
+    """``jax.distributed.initialize`` (pass ``coordinator_address``,
+    ``num_processes`` and ``process_id``; GPU hosts have no
+    autodiscovery); safe to call when already initialized or
+    single-process."""
     try:
         jax.distributed.initialize(**kwargs)
     except (RuntimeError, ValueError):

@@ -2,8 +2,9 @@
 
 The reference is single-process (SURVEY §2: zero parallelism of any kind);
 distribution is a new capability mandated by the north star
-(/root/repo/BASELINE.json): matrices row/block-partitioned across TPU chips,
-with JAX collectives over ICI moving vector segments / intermediate rows.
+(BASELINE.md): matrices row/block-partitioned across devices, with JAX
+collectives (NCCL over NVLink on GPUs) moving vector segments /
+intermediate rows.
 
 Layout: a :class:`RowPartitionedCSR` stacks ``P`` equal-row-count local CSR
 blocks along a leading partition axis — ``row_ptr (P, rows_local+1)``,

@@ -1,4 +1,4 @@
-"""Distributed tiled MXU SpGEMM — ring-rotated B blocks, block matmuls.
+"""Distributed tiled SpGEMM — ring-rotated B blocks, block matmuls.
 
 Scales :mod:`spsparse_tpu.ops.spgemm_tiled` across a device mesh: A is
 row-partitioned (device ``p`` owns row block ``p``), B is row-partitioned
@@ -7,7 +7,7 @@ too (for ``C = A @ B^T`` device ``q``'s B rows are C's column block
 ``s`` device ``p`` multiplies its A tiles against the resident block
 ``q = (p + s) % P`` using the host-precomputed pair plan for ``(p, q)``
 and accumulates into its local output tiles. Communication totals one
-rotation of B's tiles; compute is batched 128x128 MXU matmuls
+rotation of B's tiles; compute is batched 128x128 matmuls
 (no per-product sort — the ESC ring variant's final sort+merge is
 replaced by block segment-sums).
 

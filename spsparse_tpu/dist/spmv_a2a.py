@@ -1,5 +1,5 @@
 """Sparsity-aware distributed SpMV: all_to_all exchange of the column
-FOOTPRINT of x (round 5, VERDICT r4 item 7).
+FOOTPRINT of x.
 
 The ring pipeline rotates EVERY x block past every device — per-device
 comm ``(P-1) * rows_local`` values, which collapses weak scaling for

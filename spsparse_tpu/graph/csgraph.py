@@ -1,14 +1,14 @@
 """Graph algorithms over sparse adjacency matrices — the
-``scipy.sparse.csgraph`` tier, rebuilt TPU-first.
+``scipy.sparse.csgraph`` tier, rebuilt data-parallel.
 
 Every algorithm here is an iterated :func:`~spsparse_tpu.graph.semiring.
 spmv_semiring` relaxation (gather + segmented reduction over the edge
 list) inside a ``lax.while_loop`` — the data-parallel formulation that
-maps onto the VPU — instead of the priority-queue / worklist loops a CPU
+maps onto wide vector hardware — instead of the priority-queue / worklist loops a CPU
 library uses.  Consequences worth knowing:
 
 * ``shortest_path`` runs Bellman-Ford (all sources in one batched pass),
-  not Dijkstra: on TPU the O(E) fully-vectorized relaxation round beats a
+  not Dijkstra: on an accelerator the O(E) fully-vectorized relaxation round beats a
   sequential heap by orders of magnitude, and for non-negative weights
   the results are identical.  ``method='D'`` therefore routes to the same
   relaxation (scipy-compatible results, different algorithm).
@@ -148,11 +148,9 @@ def bellman_ford(a: SparseCOO, sources, *, directed: bool = True,
     ``a`` may also be a pre-built :class:`~spsparse_tpu.graph.semiring.
     RelaxPlan` (in which case ``directed``/``unweighted`` are already
     baked in and must be left at their defaults) — the scatter-free
-    fast path for iterated solves on the same graph; measured on the
-    TPU: the scatter-based ``segment_min`` round runs ~1000x under the
-    HBM roofline AND its remote compile explodes past ~1M edges
-    (probes/probe_graph_r3.py), while the ELL-by-head plan is a dense
-    gather + lane min with flat compile cost.
+    fast path for iterated solves on the same graph: the ELL-by-head
+    plan is a dense gather + min with flat compile cost, where the
+    scatter-based ``segment_min`` round serializes on its scatter.
     """
     if isinstance(a, RelaxPlan):
         if not directed or unweighted:
@@ -262,7 +260,7 @@ def dijkstra(a: SparseCOO, *, directed: bool = True, indices=None,
     """Shortest paths for non-negative weights
     (scipy.sparse.csgraph.dijkstra).
 
-    TPU-first divergence (documented, results identical): there is no
+    Data-parallel divergence (documented, results identical): there is no
     priority queue — the batched Bellman-Ford relaxation computes the
     same distances (module docstring), and for negative inputs this
     implementation therefore returns *correct* shortest paths where

@@ -4,7 +4,7 @@ Classic graph algorithms (BFS, Bellman-Ford shortest paths, reachability,
 label propagation / connected components, Boruvka MST rounds) are all
 iterated sparse matrix-vector products over a *semiring* other than
 (+, x): min-plus for shortest paths, or-and for reachability, min-min
-for label propagation.  On TPU this is the idiomatic formulation — each
+for label propagation.  On an accelerator this is the idiomatic formulation — each
 relaxation round is one gather + one segmented reduction over the edge
 list, fully vectorized, jit/vmap/while_loop-compatible — instead of the
 pointer-chasing worklist loops a CPU library would use.
@@ -16,8 +16,8 @@ primitive.
 
 Frontier shape convention: ``x`` is ``(n,)`` for a single source or
 ``(n, k)`` for ``k`` simultaneous sources/labels (the batched axis rides
-the TPU lane dimension for free — multi-source shortest paths cost one
-extra gather axis, not k passes).
+the vector width for free — multi-source shortest paths cost one extra
+gather axis, not k passes).
 """
 
 from __future__ import annotations
@@ -112,11 +112,9 @@ class RelaxPlan:
     into ELL rows — ``tails (n, K)`` and ``weights (n, K)`` padded with
     a self-pointing tail and ``+/-inf``/0 weight mask. One relaxation
     round becomes a dense gather + a lane-axis reduction: no
-    ``segment_*`` scatter at all, which matters twice on this rig — the
-    round itself is a vectorized min instead of a serialized scatter,
-    and the *compile* cost stays flat (measured: the scatter-based
-    segment_min at 4M edges did not finish remote-compiling in 900 s;
-    probes/probe_graph_r3.py). Build once per graph (host-side, like
+    ``segment_*`` scatter at all, which matters twice — the round itself
+    is a vectorized min instead of a serialized scatter, and the
+    *compile* cost stays flat. Build once per graph (host-side, like
     ``to_dia``/``prepare_general``), relax many times under jit.
     """
 

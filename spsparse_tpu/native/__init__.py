@@ -2,8 +2,9 @@
 
 The C++ library accelerates the *host-side* phases of the pipeline — bulk
 COO ingest, consolidate (stable sort + duplicate merge), CSR/row-pointer
-construction — which run before data ships to TPU HBM. It is built on
-demand with ``make`` (g++); when the toolchain or binary is unavailable
+construction — which run before data ships to device memory. It is
+built from ``csrc/*.cpp`` on first use with ``make`` (g++), or ahead of
+time with ``make -C csrc``; when the toolchain or binary is unavailable
 every entry point falls back to the equivalent numpy implementation, so
 the framework never hard-requires the native tier.
 

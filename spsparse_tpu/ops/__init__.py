@@ -5,15 +5,13 @@ from .spgemm import (spgemm, spgemm_aat, plan_spgemm_caps, best_spgemm,
                      coo_matrix_power)
 from .spgemm_tiled import spgemm_tiled, plan_tiled_spgemm, densify_tiled
 from .spgemm_planned import plan_esc, spgemm_planned, spgemm_planned_vals
-from .spgemm_window import plan_window_spgemm, spgemm_window_pallas
 from .general import (PreparedGeneral, prepare_general, spmm_general,
                       spmv_general)
+from .block_spmm import (PreparedTiledDense, prepare_tiled_dense,
+                         spmm_tiled_dense)
 from .spmm import spmv, spmm, spmm_bsr
-from .spmv_kernels import spmv_dia, spmv_ell, best_spmv, best_spmm
-from .spmv_shuffle import (PreparedShuffleSpMV, prepare_shuffle_spmv,
-                           spmv_shuffle)
-from .pallas_tiled_window import (PreparedTiledWindow, prepare_tiled_window,
-                                  spmm_tiled_window_pallas)
+from .spmv_kernels import (spmv_dia, spmv_ell, prepare_dia, best_spmv,
+                           best_spmm, spmm_route)
 from .tiled_ops import spmv_tiled, spmm_tiled
 
 __all__ = [
@@ -22,12 +20,10 @@ __all__ = [
     "coo_matrix_power",
     "spgemm_tiled", "plan_tiled_spgemm", "densify_tiled",
     "plan_esc", "spgemm_planned", "spgemm_planned_vals",
-    "plan_window_spgemm", "spgemm_window_pallas",
     "PreparedGeneral", "prepare_general", "spmm_general", "spmv_general",
+    "PreparedTiledDense", "prepare_tiled_dense", "spmm_tiled_dense",
     "spmv", "spmm", "spmm_bsr",
-    "spmv_dia", "spmv_ell", "best_spmv", "best_spmm",
-    "PreparedShuffleSpMV", "prepare_shuffle_spmv", "spmv_shuffle",
-    "PreparedTiledWindow", "prepare_tiled_window",
-    "spmm_tiled_window_pallas",
+    "spmv_dia", "spmv_ell", "prepare_dia", "best_spmv", "best_spmm",
+    "spmm_route",
     "spmv_tiled", "spmm_tiled",
 ]

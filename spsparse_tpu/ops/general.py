@@ -1,20 +1,19 @@
-"""General (unstructured) sparse SpMV/SpMM: one prepared operand, best
-kernel.
+"""General (unstructured) sparse SpMV/SpMM: one prepared operand.
 
 This is the user-facing entry for matrices with no exploitable structure
 (not banded -> DIA, not block -> BSR). Preparation is host-side and done
-once per matrix; it composes the round-2 pieces:
+once per matrix; it composes:
 
 1. :func:`spsparse_tpu.core.tiled.pack_columns` — SELL-style column
    permutation clustering each row block's columns (fewer occupied
    128x128 tiles; the dense X operand is permuted with one whole-row
-   gather at multiply time).
-2. tiling (:func:`spsparse_tpu.core.tiled.to_tiled`),
-3. a static kernel choice by measured fill:
-   >= ``DENSE_FILL_THRESHOLD`` entries/tile -> dense-block kernel
-   (HBM-bound, cost independent of fill), else the one-hot kernel
-   (payload-bound, cost scales with tile_cap). See
-   :mod:`spsparse_tpu.ops.pallas_tiled` for the measured crossover.
+   gather at multiply time);
+2. tiling (:func:`spsparse_tpu.core.tiled.to_tiled`);
+3. a static layout choice by the post-packing fill (entries per occupied
+   128x128 tile): at or above ``dense_fill_threshold(dtype)`` the
+   dense-block layout (:mod:`spsparse_tpu.ops.block_spmm`, whose cost
+   is fixed per tile), below it a row-gather layout — ELL when row lengths are
+   bounded, else an entry list with a segment sum.
 
 The reference's counterpart is the generic ``multiply`` path
 (multiply_sparse.hpp:281-365) plus the ``#if 0``'d dense-vector sketch
@@ -33,25 +32,13 @@ import numpy as np
 from ..core.coo import SparseCOO
 from ..core.errors import spsparse_error
 from ..core.tiled import SparseTiledCOO, pack_columns, to_tiled
-from .pallas_tiled import (DENSE_FILL_THRESHOLD, PreparedTiledDense,
-                           PreparedTiledRows, prepare_tiled_dense,
-                           prepare_tiled_rows, spmm_tiled_dense_pallas,
-                           spmm_tiled_pallas)
+from .block_spmm import (PreparedTiledDense, dense_fill_threshold,
+                         prepare_tiled_dense, spmm_tiled_dense)
 
 Array = Any
 
 __all__ = ["PreparedGeneral", "PreparedGather", "PreparedGatherEll",
-           "prepare_general", "spmm_general", "spmv_general",
-           "GATHER_FILL_THRESHOLD"]
-
-# Below this many entries per occupied 128x128 tile, the tiled kernels
-# lose to a plain XLA row-gather SpMM: each occupied tile costs a 64KB
-# X-tile DMA + a kernel visit (~0.3-0.5 us), while a leading-dim row
-# gather moves a 512B X row per entry at ~10.5 ns (measured 95 Mnnz/s at
-# fill 1.6 vs 3.8 Mnnz/s for the packed one-hot kernel —
-# probes/probe_gather_spmm.py, probes/probe_r2_packed.py). Crossover
-# f * 10.5ns ~= 0.35us -> f ~= 32.
-GATHER_FILL_THRESHOLD = 32.0
+           "prepare_general", "spmm_general", "spmv_general"]
 
 
 @jax.tree_util.register_dataclass
@@ -71,15 +58,10 @@ class PreparedGather:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class PreparedGatherEll:
-    """ELL row-gather layout (round 5): ``cols/vals (m, Kmax)`` with
-    sentinel-column zero-value padding. The multiply is a reshape-reduce
-    — ``(vals[:, :, None] * X[cols]).sum(1)`` — with NO segment
-    machinery, which was the scattered gather path's real bottleneck:
-    measured 104 Mnnz/s via ``segment_sum`` vs 800 Mnnz/s (f32 X) /
-    2878 Mnnz/s (bf16 X) via the ELL reduce on the bench-3b matrix
-    (probes/probe_cfg3b_fix_r5.py) — the raw row-take runs at 1.95 ns/row
-    f32, not the 10.5 ns the round-4 notes assumed. Chosen by
-    ``prepare_general`` when row-length padding stays bounded
+    """ELL row-gather layout: ``cols/vals (m, Kmax)`` with column-0
+    zero-value padding. The multiply is a reshape-reduce —
+    ``(vals[:, :, None] * X[cols]).sum(1)`` — with no segment machinery.
+    Chosen by ``prepare_general`` when row-length padding stays bounded
     (``Kmax * m <= _ELL_PAD_LIMIT * nnz``); long-tailed row lengths keep
     the entry-list + segment-sum layout."""
 
@@ -97,10 +79,9 @@ _ELL_PAD_LIMIT = 3.0
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class PreparedGeneral:
-    """Kernel-ready general sparse operand: column order (new -> old;
-    ``None`` = identity, skipping the X gather entirely) + the prepared
-    tile layout (dense-block or one-hot, chosen at prepare time from the
-    post-packing fill)."""
+    """Prepared general sparse operand: column order (new -> old;
+    ``None`` = identity, skipping the X gather entirely) + the layout
+    chosen at prepare time from the post-packing fill."""
 
     order: Any = dataclasses.field(metadata=dict(static=False))
     prep: Any = dataclasses.field(metadata=dict(static=False))
@@ -111,15 +92,11 @@ class PreparedGeneral:
 
     @property
     def kernel(self) -> str:
-        from .pallas_tiled_window import PreparedTiledWindow
         if isinstance(self.prep, PreparedGatherEll):
             return "gather_ell"
         if isinstance(self.prep, PreparedGather):
             return "gather"
-        if isinstance(self.prep, PreparedTiledWindow):
-            return "dense_window"
-        return ("dense_block" if isinstance(self.prep, PreparedTiledDense)
-                else "one_hot")
+        return "dense_block"
 
 
 def _prepare_gather(a: SparseCOO,
@@ -135,9 +112,9 @@ def _prepare_gather(a: SparseCOO,
         cols_h = np.asarray(idx[:nnz, 1])
         vals_h = np.asarray(ac.vals[:nnz])
         # padding slots carry column 0 + value 0 (an in-range index keeps
-        # the multiply's gather off the slow fill-mode path — measured
-        # ~2x on the bf16 arm); 0 * X[0] = 0 except for non-finite X
-        # rows, the same padded-zero contract the dense-block kernels use
+        # the multiply's gather off the fill-mode path); 0 * X[0] = 0
+        # except for non-finite X rows, the same padded-zero contract the
+        # dense-block layout uses
         ell_cols = np.zeros((nrows, kmax), np.asarray(idx).dtype)
         ell_vals = np.zeros((nrows, kmax), vals_h.dtype)
         slot = np.arange(nnz) - np.repeat(
@@ -159,74 +136,52 @@ def prepare_general(a: SparseCOO | SparseTiledCOO, *, pack: bool = True,
                     dtype=jnp.float32) -> PreparedGeneral:
     """Prepare a rank-2 COO for repeated products (host-side, eager).
 
-    Kernel choice by measured post-packing fill (entries per occupied
-    128x128 tile): >= ``DENSE_FILL_THRESHOLD`` -> dense-block MXU kernel;
-    >= ``GATHER_FILL_THRESHOLD`` -> one-hot MXU kernel; below that the
-    tiled formats lose outright and the layout is a plain row-gather
-    entry list (``PreparedGather``). Packing is applied only when it
-    reduces the occupied-tile count (a concentrated packing can inflate
-    the per-block-row tile maximum without helping traffic).
+    Layout choice by the post-packing fill (entries per occupied 128x128
+    tile): >= ``dense_fill_threshold(dtype)`` -> dense blocks; below that a
+    row-gather layout (``PreparedGatherEll`` for bounded row lengths,
+    else ``PreparedGather``). Packing is applied only when it reduces the
+    occupied-tile count (a concentrated packing can inflate the
+    per-block-row tile maximum without helping traffic).
 
     ``pack=False`` skips the column permutation (``order`` = identity) —
     use when X cannot be permuted (e.g. it is itself an operand of other
-    unpermuted products). ``dtype=jnp.bfloat16`` selects the mixed
-    bf16/f32 dense-block mode (halved A/X traffic, f32 accumulation)."""
+    unpermuted products). ``dtype=jnp.bfloat16`` stores the blocks (or
+    the ELL values) in bf16 — half the A traffic, f32 accumulation. A
+    ``SparseTiledCOO`` input always takes the dense-block layout."""
     if isinstance(a, SparseTiledCOO):
-        tl, order = a, None
-    else:
-        if a.rank != 2:
-            spsparse_error(-1, "prepare_general requires a rank-2 array")
-        tl_raw = to_tiled(a)
-        tl, order = tl_raw, None
-        if pack:
-            ap, p_order = pack_columns(a)
-            tl_packed = to_tiled(ap)
-            if int(tl_packed.n_tiles) < int(tl_raw.n_tiles):
-                tl, order = tl_packed, p_order
-        nnz_est = float(jnp.sum(tl.vals != 0))
-        if nnz_est / max(int(tl.n_tiles), 1) < GATHER_FILL_THRESHOLD:
-            prep_g = _prepare_gather(a, dtype=dtype)
-            if (dtype not in (jnp.float32, None)
-                    and isinstance(prep_g, PreparedGather)):
-                import warnings
+        return PreparedGeneral(order=None,
+                               prep=prepare_tiled_dense(a, dtype=dtype))
+    if a.rank != 2:
+        spsparse_error(-1, "prepare_general requires a rank-2 array")
+    tl, order = to_tiled(a), None
+    if pack:
+        ap, p_order = pack_columns(a)
+        tl_packed = to_tiled(ap)
+        if int(tl_packed.n_tiles) < int(tl.n_tiles):
+            tl, order = tl_packed, p_order
+    fill = float(jnp.sum(tl.vals != 0)) / max(int(tl.n_tiles), 1)
+    if fill >= dense_fill_threshold(dtype or jnp.float32):
+        return PreparedGeneral(order=order,
+                               prep=prepare_tiled_dense(tl, dtype=dtype))
+    prep_g = _prepare_gather(a, dtype=dtype)
+    if (dtype not in (jnp.float32, None)
+            and isinstance(prep_g, PreparedGather)):
+        import warnings
 
-                warnings.warn(
-                    "prepare_general: low fill + long-tailed rows select "
-                    "the entry-list row-gather layout, which is f32; "
-                    f"dtype={dtype} does not apply (the ELL layout would "
-                    "honor it)", stacklevel=2)
-            return PreparedGeneral(order=None, prep=prep_g)
-    nnz = float(jnp.sum(tl.vals != 0))
-    fill = nnz / max(int(tl.n_tiles), 1)
-    if fill >= DENSE_FILL_THRESHOLD:
-        # column-local patterns get the super-row X-window kernel (X
-        # fetched once per occupied column block — measured 2.7x over
-        # the per-tile kernel, 94-96% of roofline on the config-3
-        # matrix); wide windows fall back to per-tile X fetches
-        from ..core.errors import SpSparseError as _SpErr
-        from .pallas_tiled_window import prepare_tiled_window
-        try:
-            prep = prepare_tiled_window(tl, dtype=dtype or jnp.float32)
-        except _SpErr:
-            prep = prepare_tiled_dense(tl, dtype=dtype)
-    else:
-        if dtype not in (jnp.float32, None):
-            import warnings
-
-            warnings.warn(
-                f"prepare_general: fill {fill:.1f} < "
-                f"{DENSE_FILL_THRESHOLD} selects the one-hot kernel, "
-                "which streams f32 payloads only — the requested "
-                f"dtype={dtype} mixed mode does not apply here",
-                stacklevel=2)
-        prep = prepare_tiled_rows(tl)
-    return PreparedGeneral(order=order, prep=prep)
+        warnings.warn(
+            "prepare_general: low fill + long-tailed rows select "
+            "the entry-list row-gather layout, which is f32; "
+            f"dtype={dtype} does not apply (the ELL layout would "
+            "honor it)", stacklevel=2)
+    return PreparedGeneral(order=None, prep=prep_g)
 
 
 def spmm_general(pg: PreparedGeneral, X: Array, *,
                  interpret: bool = False) -> Array:
     """``Y = A @ X`` through the prepared layout (rows of ``X`` are
-    permuted by the packing order — one whole-row XLA gather)."""
+    permuted by the packing order — one whole-row XLA gather).
+    ``interpret=True`` runs the dense-block kernel in the Pallas
+    interpreter (tests)."""
     X = jnp.asarray(X)
     if X.shape[0] != pg.shape[1]:
         spsparse_error(-1,
@@ -237,8 +192,7 @@ def spmm_general(pg: PreparedGeneral, X: Array, *,
         p = pg.prep
         m, kmax = p.cols.shape
         # gather in the RHS's own dtype (a bf16 X halves the dominant
-        # stream; measured 3.6x over f32 — probe_cfg3b_fix_r5), then
-        # accumulate in f32.
+        # stream), then accumulate in f32.
         g = jnp.take(Xp, p.cols.reshape(-1), axis=0).astype(jnp.float32)
         prod = p.vals.astype(jnp.float32).reshape(m, kmax, 1) \
             * g.reshape(m, kmax, Xp.shape[1])
@@ -249,18 +203,11 @@ def spmm_general(pg: PreparedGeneral, X: Array, *,
         prod = p.vals.astype(jnp.float32)[:, None] * g
         return jax.ops.segment_sum(prod, p.rows,
                                    num_segments=p.shape[0] + 1)[:p.shape[0]]
-    from .pallas_tiled_window import (PreparedTiledWindow,
-                                      spmm_tiled_window_pallas)
-    if isinstance(pg.prep, PreparedTiledWindow):
-        return spmm_tiled_window_pallas(pg.prep, Xp, interpret=interpret)
-    if isinstance(pg.prep, PreparedTiledDense):
-        return spmm_tiled_dense_pallas(pg.prep, Xp, interpret=interpret)
-    return spmm_tiled_pallas(pg.prep, Xp, interpret=interpret)
+    return spmm_tiled_dense(pg.prep, Xp, interpret=interpret)
 
 
 def spmv_general(pg: PreparedGeneral, x: Array, *,
                  interpret: bool = False) -> Array:
-    """``y = A @ x`` — the SpMM kernels at N=1 (the tiled kernels are
-    HBM/payload-bound, so the thin RHS costs the same A traffic)."""
+    """``y = A @ x`` — the SpMM path at N=1."""
     x = jnp.asarray(x)
     return spmm_general(pg, x[:, None], interpret=interpret)[:, 0]

@@ -1,6 +1,6 @@
 """The diag-scaled sparse multiply chain: SpGEMM (MM) and SpMV (MV).
 
-TPU-native re-design of the reference's multiply layer
+Array-native re-design of the reference's multiply layer
 (/root/reference/slib/spsparse/multiply_sparse.hpp:117-365):
 
 MM:  ``ret = C · diag(scalei) · A^(T?) · diag(scalej) · B^(T?) · diag(scalek)``
@@ -29,8 +29,8 @@ inner-product formulation (O(rows_present x cols_present) merge-joins,
 ``multiply_sparse.hpp:192-246``), MM is a row-wise Gustavson SpGEMM in
 expand–sort–compress (ESC) form — a single vectorized expansion of all
 A-entry x B-row products, one stable multi-key sort, and a segmented sum —
-which is static-shape, jit-compatible, and maps onto the TPU's sort/scan
-units rather than scalar pointer-chasing. MV needs no expansion at all:
+which is static-shape, jit-compatible, and maps onto vectorized sorts and
+scans rather than scalar pointer-chasing. MV needs no expansion at all:
 scale/vector presence masks are gathered per A-entry and a segmented row
 sum finishes the job.
 
@@ -114,18 +114,16 @@ def expand_products_raw(i_a, k_a, v_a, a_live, row_start, row_len,
     product sort preserves (so accumulation order, and reference bitwise
     parity via ``merge_method="scatter"``, are unaffected):
 
-    * ``"gather"`` (CPU default): per-slot XLA gathers; stream ordered
-      (i, k, j). Fast on CPU, ~0.09 Gelem/s per gathered element on TPU.
-    * ``"join"`` (TPU default): three sort-based joins
+    * ``"gather"``: per-slot XLA gathers; stream ordered (i, k, j).
+    * ``"join"``: three sort-based joins
       (:func:`spsparse_tpu.core.joinfill.merge_fill_compact`) — A entries
       x B-row table by k, run-length spread to product slots, slots x B
-      entries by CSR position; stream ordered (k, i, j). ~8x on v5e at
-      131K nnz (probes/probe_spgemm_stages_r2b.py: the gather expansion
-      alone cost 14.6 ms there).
-    * ``"auto"``: ``"join"`` on TPU, ``"gather"`` elsewhere.
+      entries by CSR position; stream ordered (k, i, j). For devices
+      whose per-element gathers are slow.
+    * ``"auto"``: ``"gather"`` (GPUs and CPUs gather natively).
     """
     if method == "auto":
-        method = "join" if jax.default_backend() == "tpu" else "gather"
+        method = "gather"
     cap_a = i_a.shape[0]
     k_a = jnp.where(a_live, k_a, jnp.asarray(nrows_b, k_a.dtype))
     v_a = jnp.where(a_live, v_a, 0)
@@ -146,12 +144,11 @@ def expand_products_raw(i_a, k_a, v_a, a_live, row_start, row_len,
     cum = jnp.cumsum(cnt)                       # inclusive
     total = cum[-1] if cap_a else jnp.zeros((), cnt.dtype)
 
-    # Run-length decode slot -> source A entry. ``searchsorted`` costs
-    # ~17 ms per 128K on v5e (binary search = log n serial-gather passes);
-    # scattering each product-generating entry's id at its run start and
-    # filling forward with ``cummax`` (both ids and starts are increasing,
-    # and slot 0 is always a run start when total > 0) costs ~0.4 ms
-    # (probes/probe_expand_r2.py).
+    # Run-length decode slot -> source A entry: scatter each
+    # product-generating entry's id at its run start and fill forward with
+    # ``cummax`` (both ids and starts are increasing, and slot 0 is always
+    # a run start when total > 0) — one pass, where ``searchsorted`` would
+    # take log n serial-gather passes.
     t = jnp.arange(expand_cap, dtype=jnp.int32)
     valid_t = t < total
     base_e = (cum - cnt).astype(jnp.int32)
@@ -327,7 +324,7 @@ def multiply(
     test_multiply_sparse.cpp:126) at scatter speed; the default
     ``"compact"`` evaluates cell sums as per-run segmented-scan tree
     reductions — same ascending-k term set, O(run*eps) rounding
-    differences — and is ~10x faster on TPU (see
+    differences — and avoids per-element scatters (see
     core.consolidate.merge_sorted_entries).
     """
     if A.rank != 2 or B.rank != 2:

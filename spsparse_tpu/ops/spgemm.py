@@ -18,9 +18,14 @@ from ..core.structure import to_csr
 from .multiply import multiply
 
 __all__ = ["spgemm", "spgemm_aat", "plan_spgemm_caps", "best_spgemm",
-           "coo_matrix_power"]
+           "coo_matrix_power", "TILED_FILL_THRESHOLD"]
 
 Array = Any
+
+# Average entries per occupied 128x128 tile (both operands) at or above
+# which best_spgemm takes the tiled path instead of ESC. Carried over from
+# the first accelerator; not yet re-measured on a GPU (ROADMAP.md).
+TILED_FILL_THRESHOLD = 64
 
 
 def spgemm(A: SparseCOO, B: SparseCOO, *, transpose_a: bool = False,
@@ -33,8 +38,8 @@ def spgemm(A: SparseCOO, B: SparseCOO, *, transpose_a: bool = False,
     This is the fully general (sort-based ESC) path. For operands whose
     nonzeros cluster into dense-ish 128x128 tiles (regridding operators,
     banded products), :func:`spsparse_tpu.ops.spgemm_tiled.spgemm_tiled`
-    computes the same product as batched MXU block matmuls with no
-    per-product sort — measured orders of magnitude faster on TPU.
+    computes the same product as dense tile products with no per-product
+    sort.
     """
     return multiply(1.0, A, B, transpose_a=transpose_a,
                     transpose_b=transpose_b, cap=cap, expand_cap=expand_cap,
@@ -54,14 +59,13 @@ def best_spgemm(A: SparseCOO, B: SparseCOO, *, transpose_b: bool = False,
 
     Host-side analysis picks the engine: when BOTH operands' average
     128x128 tile fill reaches the dense-block crossover
-    (:data:`spsparse_tpu.ops.pallas_tiled.DENSE_FILL_THRESHOLD`), the
-    tiled MXU path runs batched block matmuls with no per-product sort;
+    (:data:`TILED_FILL_THRESHOLD`), the
+    tiled path runs dense tile products with no per-product sort;
     otherwise the general sort-based ESC path. Either way the result is
     row-major consolidated (ADD), zeros dropped — the plain-``spgemm``
     contract. Scales, policies, ``transpose_a``, and jit use stay on
     :func:`spgemm` / :func:`spsparse_tpu.ops.multiply.multiply`."""
     from ..core.tiled import to_tiled
-    from .pallas_tiled import DENSE_FILL_THRESHOLD
     from .spgemm_tiled import spgemm_tiled
 
     def fill(x):
@@ -69,13 +73,13 @@ def best_spgemm(A: SparseCOO, B: SparseCOO, *, transpose_b: bool = False,
         live = int(np.sum(np.asarray(tl.vals) != 0))
         return live / max(int(tl.n_tiles), 1)
 
-    # The tiled engine stores f32 blocks (MXU layout, densify_tiled) —
+    # The tiled engine stores f32 blocks (densify_tiled) —
     # correct for f32/bf16 operands but a silent precision downgrade for
     # f64, so f64 operands always take the exact ESC path.
     f64 = np.dtype(A.dtype) == np.float64 or np.dtype(B.dtype) == np.float64
-    if not f64 and min(fill(A), fill(B)) >= DENSE_FILL_THRESHOLD:
-        # use_pallas=None: the pair-stream kernel on TPU, the XLA batched
-        # matmul elsewhere.
+    if not f64 and min(fill(A), fill(B)) >= TILED_FILL_THRESHOLD:
+        # use_pallas=None: the Hopper pair kernel on a GPU, the plain XLA
+        # form elsewhere.
         out = spgemm_tiled(A, B, transpose_b=transpose_b, cap=cap)
         return out.consolidate((0, 1))
     return spgemm(A, B, transpose_b=transpose_b, cap=cap)
@@ -84,7 +88,7 @@ def best_spgemm(A: SparseCOO, B: SparseCOO, *, transpose_b: bool = False,
 def coo_matrix_power(A: SparseCOO, k: int) -> SparseCOO:
     """``A**k`` for a square matrix by binary exponentiation over
     :func:`best_spgemm` (scipy.sparse.linalg.matrix_power) —
-    ``O(log k)`` products, each structure-dispatched (tiled MXU vs ESC).
+    ``O(log k)`` products, each structure-dispatched (tiled vs ESC).
 
     Eager/host-side by design: intermediate capacities are
     data-dependent (fill-in grows with each square), exactly the case

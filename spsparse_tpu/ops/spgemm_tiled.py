@@ -1,17 +1,14 @@
-"""Tiled MXU SpGEMM — block-structured sparse x sparse on the matrix unit.
+"""Tiled SpGEMM — block-structured sparse x sparse as dense tile products.
 
-The general ESC SpGEMM (:mod:`spsparse_tpu.ops.multiply`) is sort-bound on
-TPU: every elementary product goes through two stable ``lax.sort`` passes
-at ~0.3-0.5 Gelem/s, which caps it ~400x under the HBM roofline (measured,
-``docs/PERFORMANCE.md``).  For matrices whose nonzeros cluster into a
-sparse pattern of dense(ish) 128x128 tiles — regridding / conservative-
-interpolation operators, banded products, mesh couplings — the TPU-native
-formulation is *block Gustavson on the MXU*: match operand tiles on the
-contraction block index (host-side, static pattern), batch the matching
-128x128 tile products onto the systolic array, and segment-sum them into
-the (sparse) set of occupied output tiles.  No per-entry sort, no gather;
-the only data-dependent step is the final (optional) extraction of
-nonzero entries back to COO.
+The general ESC SpGEMM (:mod:`spsparse_tpu.ops.multiply`) sorts every
+elementary product. For matrices whose nonzeros cluster into a sparse
+pattern of dense(ish) 128x128 tiles — regridding / conservative-
+interpolation operators, banded products, mesh couplings — the product is
+*block Gustavson*: match operand tiles on the contraction block index
+(host-side, static pattern), multiply the matching 128x128 tile pairs,
+and sum them into the (sparse) set of occupied output tiles. No
+per-entry sort, no gather; the only data-dependent step is the final
+(optional) extraction of nonzero entries back to COO.
 
     C = A @ B           pairs (ta, tb) with A.tile_col[ta] == B.tile_row[tb]
     C = A @ B^T         pairs (ta, tb) with A.tile_col[ta] == B.tile_col[tb]
@@ -19,13 +16,14 @@ nonzero entries back to COO.
 
 Two device paths with identical semantics:
 
-* :func:`spgemm_tiled_xla` — gathered batched matmul + ``segment_sum``
-  (runs anywhere; materializes the P x 128 x 128 product stream in HBM).
-* :func:`spgemm_tiled_pallas` — one grid step per pair, operand tiles
-  DMA'd by scalar-prefetched block ids, products accumulated in VMEM and
-  each output tile written exactly once (pairs are plan-sorted by output
-  tile).  HBM traffic = 2 operand tiles in per pair + 1 tile out per
-  output tile.
+* :func:`spgemm_tiled_xla` — batched pair products + ``segment_sum``
+  (the plain reference; writes the P x 128 x 128 product stream to
+  device memory before reducing it);
+* :func:`spgemm_tiled_pallas` — the Hopper pair kernel (Pallas, Triton
+  route): one program per output-tile slab loops over its pairs, which
+  the plan keeps contiguous, and accumulates in registers. It runs for
+  bf16 blocks on a GPU; float32 blocks take the plain form, which
+  measured about 3x faster at full precision on an H200 (PERF.md).
 
 Duplicate semantics are consolidate(ADD) — block accumulation sums
 everything — and exact zeros are dropped at COO extraction, matching the
@@ -44,8 +42,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
+from ..core.backend import dot_precision, runs_gpu_kernel
 from ..core.coo import SparseCOO, round_up_pow2
 from ..core.errors import SpSparseError
 from ..core.tiled import SparseTiledCOO, TILE, to_tiled
@@ -53,8 +52,9 @@ from ..core.tiled import SparseTiledCOO, TILE, to_tiled
 Array = Any
 
 __all__ = ["TiledBlocks", "densify_tiled", "TiledGemmPlan",
-           "plan_tiled_spgemm", "spgemm_tiled_xla", "spgemm_tiled_pallas",
-           "spgemm_tiled", "tiled_blocks_to_coo"]
+           "plan_tiled_spgemm", "plan_pstart", "spgemm_tiled_xla",
+           "spgemm_pairs_pallas", "spgemm_tiled_pallas", "spgemm_tiled",
+           "tiled_blocks_to_coo"]
 
 
 @jax.tree_util.register_dataclass
@@ -98,10 +98,10 @@ class TiledBlocks:
         return dense[: self.shape[0], : self.shape[1]]
 
     def to_prepared_dense(self, dtype=None):
-        """Row-grouped layout for the dense-block SpMM kernel (host-side,
-        eager) — lets a tiled-SpGEMM result feed ``Y = C @ X`` directly
-        on the MXU without a COO round trip."""
-        from .pallas_tiled import PreparedTiledDense
+        """Row-grouped layout for the block SpMM (host-side, eager) —
+        lets a tiled-SpGEMM result feed ``Y = C @ X`` directly without a
+        COO round trip."""
+        from .block_spmm import PreparedTiledDense
         tr = np.asarray(self.tile_row)
         tc = np.asarray(self.tile_col)
         blocks = np.asarray(self.blocks)
@@ -114,11 +114,11 @@ class TiledBlocks:
             raise SpSparseError(
                 f"to_prepared_dense would materialize {est >> 30} GiB of "
                 f"row-grouped blocks (nbr x Rt = {nbr} x {Rt}); extract "
-                "to COO and use the one-hot kernel for such layouts")
+                "to COO and use a row-gather layout for such patterns")
         tcols = np.full((nbr, Rt), nbc, np.int32)
         out = np.zeros((nbr, Rt, TILE, TILE), blocks.dtype)
         # Vectorized fill (same slot-from-sorted-rows trick as
-        # prepare_tiled_rows): group live tiles by block row with one
+        # prepare_tiled_dense): group live tiles by block row with one
         # stable sort, then one fancy-indexed write per array.
         order = np.argsort(np.where(live, tr, nbr), kind="stable")
         order = order[: int(live.sum())]
@@ -243,9 +243,7 @@ def plan_tiled_spgemm(A: TiledBlocks, B: TiledBlocks, *,
     # Serpentine pair order within each output-tile group: even groups
     # ascend by pa, odd groups descend. Adjacent groups of one output
     # block row draw pairs from the same A block row, so the boundary
-    # pair often reuses the previous group's A tile — Mosaic's pipeline
-    # skips a DMA whose block index is unchanged between consecutive
-    # grid steps, trimming operand refetches at zero model cost.
+    # pair often reuses the tile the previous group read last.
     if pa.size:
         pa_max = int(pa.max(initial=0)) + 1
         within = np.where(oid % 2 == 1, pa_max - 1 - pa, pa)
@@ -260,10 +258,9 @@ def plan_tiled_spgemm(A: TiledBlocks, B: TiledBlocks, *,
 
 
 def _pair_dot(a, b, transpose_b: bool):
-    # bf16 operands accumulate in f32 on the MXU (preferred_element_type);
-    # f32 operands use HIGHEST (6-pass) to keep oracle-level accuracy.
-    prec = (jax.lax.Precision.DEFAULT if a.dtype == jnp.bfloat16
-            else jax.lax.Precision.HIGHEST)
+    # bf16 operands accumulate in f32 (preferred_element_type); f32
+    # operands multiply at full precision.
+    prec = dot_precision(a.dtype)
     contract = ((1,), (1,)) if transpose_b else ((1,), (0,))
     return jax.lax.dot_general(
         a, b, dimension_numbers=(contract, ((), ())),
@@ -300,126 +297,47 @@ def spgemm_tiled_xla(A: TiledBlocks, B: TiledBlocks,
                        blocks=out, shape=plan.out_shape)
 
 
-def _pairs_kernel(pa_ref, pb_ref, oid_ref, a_ref, b_ref, out_ref, acc, *,
-                  transpose_b: bool, n_pairs: int):
-    p = pl.program_id(0)
-    prev = oid_ref[jnp.maximum(p, 1) - 1]
-    first = jnp.logical_or(p == 0, oid_ref[p] != prev)
+def _pair_kernel(pstart_ref, pa_ref, pb_ref, a_ref, b_ref, o_ref, *,
+                 transpose_b: bool, bm: int, bn: int, precision):
+    # One flat grid axis over (row slab, column slab, output tile); the
+    # program loops over its output tile's pairs (contiguous in plan
+    # order) and keeps the running product in float32 registers, so each
+    # output slab is written once and no per-pair product reaches memory.
+    pid = pl.program_id(0)
+    h = pid % (TILE // bm)
+    w = (pid // (TILE // bm)) % (TILE // bn)
+    t = pid // ((TILE // bm) * (TILE // bn))
 
-    @pl.when(first)
-    def _():
-        acc[...] = jnp.zeros_like(acc)
+    def body(p, acc):
+        a = a_ref[pa_ref[p], pl.ds(h * bm, bm), :]            # (bm, T)
+        if transpose_b:
+            b = b_ref[pb_ref[p], pl.ds(w * bn, bn), :]        # (bn, T)
+        else:
+            b = b_ref[pb_ref[p], :, pl.ds(w * bn, bn)]        # (T, bn)
+        return acc + pl.dot(a, b, trans_b=transpose_b, precision=precision)
 
-    acc[...] += _pair_dot(a_ref[0], b_ref[0], transpose_b)
-
-    nxt = oid_ref[jnp.minimum(p + 1, n_pairs - 1)]
-    last = jnp.logical_or(p == n_pairs - 1, oid_ref[p] != nxt)
-
-    @pl.when(last)
-    def _():
-        out_ref[0] = acc[...]
+    acc = jax.lax.fori_loop(pstart_ref[t], pstart_ref[t + 1], body,
+                            jnp.zeros((bm, bn), jnp.float32))
+    o_ref[t, pl.ds(h * bm, bm), pl.ds(w * bn, bn)] = acc
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("transpose_b", "n_out", "interpret"))
-def _spgemm_tiled_pallas(a_blocks, b_blocks, pa, pb, oid, *,
-                         transpose_b: bool, n_out: int, interpret: bool):
-    P = pa.shape[0]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(P,),
-        in_specs=[
-            pl.BlockSpec((1, TILE, TILE),
-                         lambda p, pa, pb, oid: (pa[p], 0, 0)),
-            pl.BlockSpec((1, TILE, TILE),
-                         lambda p, pa, pb, oid: (pb[p], 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, TILE, TILE),
-                               lambda p, pa, pb, oid: (oid[p], 0, 0)),
-        scratch_shapes=[pltpu.VMEM((TILE, TILE), jnp.float32)],
-    )
+@functools.partial(jax.jit, static_argnames=(
+    "transpose_b", "n_out", "bm", "bn", "interpret"))
+def spgemm_pairs_pallas(a_blocks, b_blocks, pstart, pa, pb, *,
+                        transpose_b: bool, n_out: int, bm: int = 64,
+                        bn: int = 128, interpret: bool = False):
+    """The Hopper pair kernel: ``(n_out, TILE, TILE)`` float32 output
+    blocks, output tile ``t`` summing the products of pairs
+    ``pstart[t]:pstart[t+1]`` (see :func:`plan_pstart`)."""
+    b_blocks = b_blocks.astype(a_blocks.dtype)
     return pl.pallas_call(
-        functools.partial(_pairs_kernel, transpose_b=transpose_b,
-                          n_pairs=P),
-        grid_spec=grid_spec,
+        functools.partial(_pair_kernel, transpose_b=transpose_b, bm=bm,
+                          bn=bn, precision=dot_precision(a_blocks.dtype)),
         out_shape=jax.ShapeDtypeStruct((n_out, TILE, TILE), jnp.float32),
+        grid=(n_out * (TILE // bm) * (TILE // bn),),
+        compiler_params=pltriton.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(pa, pb, oid, a_blocks, b_blocks)
-
-
-def _pairs_stream_kernel(pstart_ref, pa_ref, pb_ref, a_hbm, b_hbm, out_ref,
-                         abuf, bbuf, sem_a, sem_b, *, n_pairs: int,
-                         transpose_b: bool):
-    # Grid = one step per OUTPUT tile (not per pair): the out block is
-    # written exactly once through a trivial t -> t out spec, so Mosaic
-    # never pre-reads output blocks the way the revisit pattern of
-    # _pairs_kernel makes it do (measured +1 out-tile read per tile ~=
-    # the round-3 31% gap to roofline), and per-grid-step overhead is
-    # paid once per output tile instead of once per pair.  Operand tiles
-    # are DMA'd manually from HBM by the scalar-prefetched pair indices,
-    # double-buffered across output-tile boundaries (global pair order),
-    # exactly like the dense SpMM kernel's cross-row X prefetch.
-    t = pl.program_id(0)
-    ps = pstart_ref[t]
-    pe = pstart_ref[t + 1]
-
-    def dma_a(g):
-        i = pa_ref[jnp.minimum(g, n_pairs - 1)]
-        return pltpu.make_async_copy(a_hbm.at[i], abuf.at[g % 2],
-                                     sem_a.at[g % 2])
-
-    def dma_b(g):
-        i = pb_ref[jnp.minimum(g, n_pairs - 1)]
-        return pltpu.make_async_copy(b_hbm.at[i], bbuf.at[g % 2],
-                                     sem_b.at[g % 2])
-
-    @pl.when(t == 0)
-    def _():
-        dma_a(0).start()
-        dma_b(0).start()
-
-    def body(g, acc):
-        @pl.when(g + 1 < n_pairs)
-        def _():
-            dma_a(g + 1).start()
-            dma_b(g + 1).start()
-
-        dma_a(g).wait()
-        dma_b(g).wait()
-        return acc + _pair_dot(abuf[g % 2], bbuf[g % 2], transpose_b)
-
-    out_ref[0] = jax.lax.fori_loop(
-        ps, pe, body, jnp.zeros((TILE, TILE), jnp.float32))
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("transpose_b", "n_out", "interpret"))
-def _spgemm_tiled_pallas_v2(a_blocks, b_blocks, pstart, pa, pb, *,
-                            transpose_b: bool, n_out: int, interpret: bool):
-    P = pa.shape[0]
-    dt = a_blocks.dtype
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(n_out,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),      # A blocks in HBM
-            pl.BlockSpec(memory_space=pl.ANY),      # B blocks in HBM
-        ],
-        out_specs=pl.BlockSpec((1, TILE, TILE),
-                               lambda t, ps, pa, pb: (t, 0, 0)),
-        scratch_shapes=[
-            pltpu.VMEM((2, TILE, TILE), dt),
-            pltpu.VMEM((2, TILE, TILE), dt),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    return pl.pallas_call(
-        functools.partial(_pairs_stream_kernel, n_pairs=P,
-                          transpose_b=transpose_b),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_out, TILE, TILE), jnp.float32),
-        interpret=interpret,
+        name="spgemm_pairs",
     )(pstart, pa, pb, a_blocks, b_blocks)
 
 
@@ -434,21 +352,16 @@ def plan_pstart(plan: TiledGemmPlan) -> np.ndarray:
 def spgemm_tiled_pallas(A: TiledBlocks, B: TiledBlocks,
                         plan: TiledGemmPlan, *,
                         interpret: bool = False) -> TiledBlocks:
-    """Tiled SpGEMM via the Pallas pair-stream kernel.
-
-    Pairs are consumed in plan order (grouped by output tile); operand
-    tiles stream through double-buffered VMEM blocks, the running product
-    accumulates in a VMEM scratch tile, and each output tile is stored
-    once.  HBM traffic: ``P * 2`` operand tiles read + ``T_out`` tiles
-    written.
-    """
+    """Tiled SpGEMM via the Hopper pair kernel: each output tile's pairs
+    are consumed in plan order, operand tiles are read once per pair,
+    and each output tile is stored once."""
     if plan.n_pairs == 0:
         return spgemm_tiled_xla(A, B, plan)
-    out = _spgemm_tiled_pallas(A.blocks, B.blocks,
-                               jnp.asarray(plan.pa), jnp.asarray(plan.pb),
-                               jnp.asarray(plan.oid),
-                               transpose_b=plan.transpose_b,
-                               n_out=plan.n_out_tiles, interpret=interpret)
+    out = spgemm_pairs_pallas(A.blocks, B.blocks,
+                              jnp.asarray(plan_pstart(plan)),
+                              jnp.asarray(plan.pa), jnp.asarray(plan.pb),
+                              transpose_b=plan.transpose_b,
+                              n_out=plan.n_out_tiles, interpret=interpret)
     return TiledBlocks(tile_row=jnp.asarray(plan.out_tile_row),
                        tile_col=jnp.asarray(plan.out_tile_col),
                        blocks=out, shape=plan.out_shape)
@@ -468,13 +381,9 @@ def tiled_blocks_to_coo(tb: TiledBlocks, *, cap: int | None = None,
         cap = nnz_cap
     if cap is None:
         cap = round_up_pow2(max(int(jnp.sum(blocks != 0)), 1))
-    # jnp.nonzero(size=...) lowers to a per-element scatter on TPU
-    # (~0.09 Gelem/s — measured 99 ms for a 668-tile config-4 result,
-    # probes/probe_r2_tiled_gemm.py); compact with a sort instead. The
-    # sort cost is linear in operand count (docs/PERFORMANCE.md), so pack
-    # (dead-flag, position) into ONE integer key — a 1-operand sort at
-    # ~1.8 Gelem/s vs ~0.5 for key+2-payload (measured 35 -> ~8 ms on the
-    # config-4 result) — then gather the cap surviving values by position.
+    # Compact with one sort: pack (dead-flag, position) into ONE integer
+    # key (a sort's cost grows with its operand count), then gather the
+    # cap surviving values by position.
     flat = blocks.reshape(-1)
     nel = flat.shape[0]
     use64 = nel >= (1 << 30)
@@ -513,9 +422,9 @@ def tiled_blocks_to_coo(tb: TiledBlocks, *, cap: int | None = None,
 
 def spgemm_tiled(A: SparseCOO, B: SparseCOO, *, transpose_b: bool = False,
                  dtype=jnp.float32, use_pallas: bool | None = None,
-                 cap: int | None = None, use_window: bool | None = None,
+                 cap: int | None = None,
                  interpret: bool = False) -> SparseCOO:
-    """``C = A @ B^(T?)`` via the tiled MXU path (eager convenience).
+    """``C = A @ B^(T?)`` via the tiled path (eager convenience).
 
     Tiling, densification, and pair planning run host-side; the block
     products run on device.  Result is an *unsorted* COO (consolidated
@@ -525,40 +434,16 @@ def spgemm_tiled(A: SparseCOO, B: SparseCOO, *, transpose_b: bool = False,
     (:func:`spsparse_tpu.ops.spgemm.spgemm`) — densified tiles would
     waste ``64KB/tile`` of traffic on mostly-zero blocks.
 
-    ``A @ B^T`` products whose pair structure is block-BANDED (regridding
-    ``A A^T`` and friends) auto-route through the rolling-window kernel
-    (:mod:`.spgemm_window` — operand rows streamed once per super-group
-    instead of 2 scattered tile fetches per pair; measured 4.2x over the
-    pair kernel on the config-4 family at 2^17 rows, round 5); non-banded
-    plans fall back to the pair kernel. ``use_window=False`` disables."""
+    ``use_pallas=None`` runs the Hopper pair kernel for bf16 blocks on a
+    GPU and the plain XLA form otherwise; ``interpret=True`` runs the
+    kernel in the Pallas interpreter."""
     if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_window is None:
-        use_window = transpose_b and (use_pallas or interpret)
-    if use_window and transpose_b:
-        from .pallas_tiled import prepare_tiled_dense
-        from .spgemm_window import (band_to_tiled_blocks,
-                                    plan_window_spgemm,
-                                    spgemm_window_pallas)
-        try:
-            pa_ = prepare_tiled_dense(to_tiled(A), dtype=dtype)
-            pb_ = pa_ if B is A else prepare_tiled_dense(to_tiled(B),
-                                                         dtype=dtype)
-            plan = plan_window_spgemm(
-                pa_.tcols, pb_.tcols, nbc=pa_.nbc,
-                out_shape=(A.shape[0], B.shape[0]), dtype=dtype,
-                shared=pa_ is pb_)
-            band = spgemm_window_pallas(
-                plan, pa_.blocks, None if plan.shared else pb_.blocks,
-                interpret=interpret)
-            return tiled_blocks_to_coo(band_to_tiled_blocks(band, plan),
-                                       cap=cap)
-        except SpSparseError:
-            pass        # non-banded pair structure: pair kernel below
+        use_pallas = interpret or runs_gpu_kernel(dtype)
     ta = densify_tiled(to_tiled(A), dtype=dtype)
     tbk = densify_tiled(to_tiled(B), dtype=dtype)
     plan = plan_tiled_spgemm(ta, tbk, transpose_b=transpose_b)
-    f = spgemm_tiled_pallas if use_pallas else spgemm_tiled_xla
-    kw = {"interpret": interpret} if f is spgemm_tiled_pallas else {}
-    out = f(ta, tbk, plan, **kw)
+    if use_pallas:
+        out = spgemm_tiled_pallas(ta, tbk, plan, interpret=interpret)
+    else:
+        out = spgemm_tiled_xla(ta, tbk, plan)
     return tiled_blocks_to_coo(out, cap=cap)

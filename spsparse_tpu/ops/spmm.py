@@ -1,18 +1,16 @@
 """Sparse x dense products: SpMV (dense vector) and SpMM (dense block).
 
 The reference sketched-but-disabled this entire capability
-(/root/reference/slib/spsparse/multiply_dense.hpp:8-36 is ``#if 0``'d:
+(reference ``slib/spsparse/multiply_dense.hpp:8-36`` is ``#if 0``'d:
 ``y = M·x`` for a dense ``x`` with optional transpose and NaN/Inf
-filtering). On TPU it is *the* first-class case — SURVEY §2 — because a
-dense right-hand block feeds the MXU and a dense vector turns SpMV into a
-gather + segmented reduction with no sorting at all.
+filtering). Here it is *the* first-class case — SURVEY §2 — because a
+dense right-hand block feeds the matrix units and a dense vector turns
+SpMV into a gather + segmented reduction with no sorting at all.
 
-XLA paths live here (segment scatter-add for CSR/COO, fully vectorized
-gather+reduce for ELL); the Pallas kernels in
-:mod:`spsparse_tpu.ops.pallas_dia` (banded),
-:mod:`spsparse_tpu.ops.pallas_segsum` (CSR row reduction) and
-:mod:`spsparse_tpu.ops.pallas_tiled` (general tiled one-hot SpMM)
-override them on TPU for the hot configurations.
+These are the generic XLA paths (segment scatter-add for CSR/COO, fully
+vectorized gather+reduce for ELL); :mod:`spsparse_tpu.ops.spmv_kernels`
+routes structured formats (DIA, prepared layouts) to their own paths.
+Float32 contractions run at full precision (no TF32).
 
 Semantics of the ``filter_nan`` flag follow the reference sketch
 (``multiply_dense.hpp:20-23``): non-finite entries of the dense operand are
@@ -26,6 +24,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 
+from ..core.backend import dot_precision
 from ..core.coo import SparseCOO
 from ..core.errors import spsparse_error
 from ..core.structure import SparseCSR, SparseELL, to_csr
@@ -58,7 +57,8 @@ def _spmm_ell_blocked(A: "SparseELL", Xc, acc):
     if block >= nrows:
         xg = jnp.take(Xc, A.cols.reshape(-1), axis=0, mode="fill",
                       fill_value=0).reshape(nrows, K, N)
-        return jnp.einsum("rk,rkn->rn", A.vals.astype(acc), xg.astype(acc))
+        return jnp.einsum("rk,rkn->rn", A.vals.astype(acc), xg.astype(acc),
+                          precision=dot_precision(acc))
     nblk = -(-nrows // block)
     pad = nblk * block - nrows
     cols = jnp.pad(A.cols, ((0, pad), (0, 0)),
@@ -69,7 +69,8 @@ def _spmm_ell_blocked(A: "SparseELL", Xc, acc):
         c, v = blk
         g = jnp.take(Xc, c.reshape(-1), axis=0, mode="fill",
                      fill_value=0).reshape(block, K, N)
-        return jnp.einsum("rk,rkn->rn", v.astype(acc), g.astype(acc))
+        return jnp.einsum("rk,rkn->rn", v.astype(acc), g.astype(acc),
+                          precision=dot_precision(acc))
 
     y = jax.lax.map(body, (cols, vals))
     return y.reshape(nblk * block, N)[:nrows]
@@ -121,7 +122,7 @@ def spmm(A, X, *, transpose: bool = False, filter_nan: bool = False,
     """``Y = A^(T?) @ X`` for a dense block ``X (K, N)``; returns ``(I, N)``.
 
     ``accum_dtype`` optionally forces the accumulation precision (e.g.
-    ``jnp.float32`` for bf16 inputs — the mixed-precision MXU recipe).
+    ``jnp.float32`` for bf16 inputs — the mixed-precision recipe).
     """
     X = jnp.asarray(X)
     if X.ndim == 1:
@@ -158,7 +159,7 @@ def spmm(A, X, *, transpose: bool = False, filter_nan: bool = False,
 
 
 def spmm_bsr(bsr, X, *, accum_dtype=None) -> Array:
-    """BSR x dense block: one MXU matmul per stored tile.
+    """BSR x dense block: one dense matmul per stored tile.
 
     Gathers ``bw``-row slices of ``X`` per block (full-lane contiguous
     chunks), runs a batched ``(bh, bw) @ (bw, N)`` matmul, and segment-adds
@@ -178,7 +179,9 @@ def spmm_bsr(bsr, X, *, accum_dtype=None) -> Array:
     gathered = jnp.take(Xp, bc, axis=0, mode="fill",
                         fill_value=0)                     # (cap, bw, N)
     tiles = jnp.einsum("chw,cwn->chn", bsr.blocks, gathered,
-                       preferred_element_type=acc)        # (cap, bh, N)
+                       preferred_element_type=acc,
+                       precision=dot_precision(bsr.blocks.dtype,
+                                               gathered.dtype))
     br = jnp.where(live, bsr.block_rows(), bsr.nbrows)
     Y = jnp.zeros((bsr.nbrows, bh, N), acc).at[br].add(
         jnp.where(live[:, None, None], tiles, 0), mode="drop")

@@ -1,17 +1,17 @@
-"""SpMV/SpMM over the tiled one-hot COO format — MXU-indexed sparsity.
+"""SpMV/SpMM over the tiled one-hot COO format: the plain reference of
+the tiled COO layout.
 
-See :mod:`spsparse_tpu.core.tiled` for the format rationale. The compute
-pattern per live tile ``t`` at (R, C) tile coordinates::
+See :mod:`spsparse_tpu.core.tiled` for the format. The compute pattern per
+live tile ``t`` at (R, C) tile coordinates::
 
     xg   = OneHot(cols_t) @ x_block[C]          # (cap,128)@(128,) gather
-    prod = vals_t * xg                          # VPU
+    prod = vals_t * xg
     y_block[R] += OneHot(rows_t)^T @ prod       # (128,cap)@(cap,) scatter
 
 Everything is batched over tiles with one ``einsum`` pair; both "gathers"
-are MXU matmuls. FLOP cost is ``512 * tile_cap * n_tiles`` — at TPU matmul
-rates this is cheap next to the HBM traffic of the entry payload, so the
-achievable throughput is set by memory streaming, not by scalar gather
-latency (the failure mode of the XLA-take path).
+are matmuls, at full float32 precision. FLOP cost is
+``512 * tile_cap * n_tiles`` whatever the fill; for repeated products
+prepare the matrix with :func:`spsparse_tpu.ops.prepare_general`.
 """
 
 from __future__ import annotations
@@ -37,13 +37,15 @@ def _onehot_products(tl: SparseTiledCOO, xb: Array) -> Array:
     oh_cols = (tl.cols.astype(jnp.int32)[:, :, None] == iot[None, None, :]
                ).astype(xb.dtype)                       # (nt, cap, 128)
     gathered = jnp.einsum("tck,tk...->tc...", oh_cols, xb,
-                          preferred_element_type=jnp.float32)
+                          preferred_element_type=jnp.float32,
+                          precision=jax.lax.Precision.HIGHEST)
     vshape = tl.vals.shape + (1,) * (gathered.ndim - 2)
     prod = tl.vals.astype(jnp.float32).reshape(vshape) * gathered
     oh_rows = (tl.rows.astype(jnp.int32)[:, :, None] == iot[None, None, :]
                ).astype(jnp.float32)
     out = jnp.einsum("tcr,tc...->tr...", oh_rows, prod,
-                     preferred_element_type=jnp.float32)
+                     preferred_element_type=jnp.float32,
+                     precision=jax.lax.Precision.HIGHEST)
     return jnp.where(live[(...,) + (None,) * (out.ndim - 1)], out, 0)
 
 

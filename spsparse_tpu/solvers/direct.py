@@ -2,8 +2,8 @@
 ``spsolve_triangular`` (the scipy.sparse.linalg surface; SuperLU
 contract).
 
-TPU-first split
----------------
+Host/device split
+-----------------
 *Factorization* is sequential pointer-chasing (symbolic DFS + sparse
 column solves) and runs on the **host** in the native C++ runtime
 (csrc/spsparse_lu.cpp, Gilbert-Peierls left-looking with threshold
@@ -108,18 +108,13 @@ def _strict_parts(n, colptr, rowind, val, *, lower: bool):
     plus the diagonal vector (1.0 where absent — callers validate
     separately). Returns ``(kind, payload, diag)``:
 
-    * ``kind='ell'`` — scatter-free layout (the TPU-first one, same
-      trick as graph.prepare_relax's ELL-by-head): ``payload =
-      (C (n, K) int32 column table, W (n, K) weights)``, padding slots
-      read x[0] with weight 0. Each sweep is a dense gather + lane sum
-      — no scatter, so it runs at gather bandwidth on TPU where the
-      ``segment-add`` alternative is ~1000x under roofline
-      (docs/PERFORMANCE.md, "CSR gather" measurements).
+    * ``kind='ell'`` — scatter-free layout (same trick as
+      graph.prepare_relax's ELL-by-head): ``payload = (C (n, K) int32
+      column table, W (n, K) weights)``, padding slots read x[0] with
+      weight 0. Each sweep is a dense gather + row sum — no scatter.
     * ``kind='dia'`` — banded factors (what RCM ordering produces):
       ``payload`` is a :class:`~spsparse_tpu.core.dia.SparseDIA` of the
-      strict part, so each sweep rides the DIA SpMV (the framework's
-      fastest kernel class — 180 Gnnz/s measured on v5e vs ~0.1 Gnnz/s
-      for random gathers, docs/PERFORMANCE.md).
+      strict part, so each sweep rides the fused DIA SpMV (no gathers).
     * ``kind='coo'`` — ``payload = (rows, cols, w)`` padded COO with a
       sentinel row; used only when a skewed row would blow the ELL
       table past ``_ELL_MAX_WIDTH`` columns.
@@ -189,8 +184,8 @@ def _sweep_solve_ell(C, W, dinv, b, nsweeps: int):
 
 
 def _sweep_solve_dia(dia, dinv, b, nsweeps: int):
-    """Banded-factor sweep: N @ x through the DIA kernel class (on TPU
-    the Pallas streaming kernel via ``best_spmv``)."""
+    """Banded-factor sweep: N @ x through the fused DIA path
+    (``best_spmv``)."""
     from ..ops.spmv_kernels import best_spmv
     dinv = jnp.asarray(dinv, b.dtype)
     di = dinv if b.ndim == 1 else dinv[:, None]
@@ -240,26 +235,15 @@ class _TriPlan:
         self.dinv = 1.0 / diag
 
     def solve(self, b, method: str = "auto"):
-        """``auto`` routing by a measured cost model
-        (probes/probe_direct_r3.py, v5e): host sequential substitution
-        runs at ~0.32 Gnnz/s; a device sweep costs ``max(nnz/rate,
-        50us)`` with rate ~44 Gnnz/s for the DIA layout and ~0.1 Gnnz/s
-        (the TPU random-gather floor) for ELL/COO — times ``nlev - 1``
-        sweeps. The sweep path therefore wins exactly for *shallow*
-        factors (ILUT drops, block-structured systems); a contiguous
-        band has ``nlev = n`` and always routes to the host, no matter
-        how fast one sweep is."""
+        """``auto`` routing by level count: the device path runs one
+        sweep per level (``nlev - 1`` sweeps), host substitution one pass.
+        The sweep path therefore wins exactly for *shallow* factors
+        (ILUT drops, block-structured systems); a contiguous band has
+        ``nlev = n`` and always routes to the host, no matter how fast
+        one sweep is."""
         if method == "auto":
-            ns = max(self.nlev - 1, 1)
-            nnz = max(int(self.rowind.size), 1)
-            if jax.default_backend() == "tpu":
-                host_t = nnz / 0.32e9
-                rate = 44e9 if self.kind == "dia" else 0.1e9
-                dev_t = ns * max(nnz / rate, 5e-5)
-                method = "device" if dev_t < host_t else "host"
-            else:
-                method = "device" if self.nlev <= max(64, self.n // 64) \
-                    else "host"
+            method = "device" if self.nlev <= max(64, self.n // 64) \
+                else "host"
         if method == "device":
             ns = max(self.nlev - 1, 0)
             if self.kind == "dia":

@@ -2,7 +2,7 @@
 shift-invert (``sigma=``) — thin dispatch over the engines in
 :mod:`spsparse_tpu.solvers.spectral` plus the direct tier.
 
-The engines stay the TPU-first primitives (device Arnoldi/Lanczos
+The engines stay the device-first primitives (device Arnoldi/Lanczos
 decompositions; host small-eig); what this module adds is scipy's
 calling convention: pass a :class:`SparseCOO` (or a
 :class:`~spsparse_tpu.solvers.linop.LinearOperator`, or a bare matvec)

@@ -117,14 +117,11 @@ def cg_solve_mrhs(matmat: Callable[[Array], Array], B: Array, *,
     operator and ``B`` of shape ``(n, k)``, all ``k`` systems advanced in
     lockstep with *per-column* step lengths.
 
-    Why this exists: on TPU the operator application dominates a CG
-    iteration, and a multi-RHS operator amortizes the matrix stream across
-    columns — the DIA multi-RHS kernel
-    (:func:`spsparse_tpu.ops.pallas_dia_mrhs.spmm_dia_mrhs_pallas`) measures
-    ~6x the per-solve throughput of one-column SpMV at k=8 (shared diagonal
-    stream; docs/PERFORMANCE.md "Proof via batching"). ``matmat`` maps
-    ``(n, k) -> (n, k)``: that kernel, :func:`ops.best_spmm`, or any dense
-    matmul. This is the block-Krylov building block the reference's
+    Why this exists: the operator application dominates a CG iteration,
+    and a multi-RHS operator amortizes the matrix stream across columns —
+    :func:`ops.best_spmm` on a DIA operator reads each diagonal once for
+    all ``k`` columns. ``matmat`` maps ``(n, k) -> (n, k)``:
+    :func:`ops.best_spmm`, or any dense matmul. This is the block-Krylov building block the reference's
     single-element iteration model cannot express (no reference counterpart;
     the closest is the ``#if 0``'d dense-vector multiply sketch,
     /root/reference/slib/spsparse/multiply_dense.hpp:8-36).
@@ -253,8 +250,8 @@ def cgs_solve(matvec: Callable[[Array], Array], b: Array, *,
               ) -> tuple[Array, Array]:
     """Conjugate Gradient Squared (Sonneveld) for general ``A`` — the
     transpose-free cousin of BiCG (scipy.sparse.linalg.cgs): two matvecs
-    per iteration, no ``A^T`` stream (on TPU a second transposed operator
-    stream would double the HBM traffic, which is why the transpose-free
+    per iteration, no ``A^T`` stream (a second transposed operator stream
+    would double the memory traffic, which is why the transpose-free
     variants are the ones shipped — see also :func:`tfqmr_solve`).
     Convergence is faster than BiCGStab when it converges but the squared
     polynomial makes residuals oscillate; prefer BiCGStab/GMRES when
@@ -295,7 +292,7 @@ def tfqmr_solve(matvec: Callable[[Array], Array], b: Array, *,
     general ``A``: CGS's two matvecs per iteration but with the
     quasi-minimal-residual smoothing, so the residual decays monotonely
     instead of oscillating. No ``A^T`` needed (see :func:`cgs_solve` for
-    why the transpose-free variants are the TPU-native menu; QMR/BiCG
+    why the transpose-free variants are the shipped menu; QMR/BiCG
     proper are deliberately not shipped — their ``A^T`` stream doubles
     operator traffic and TFQMR/CGS dominate them in practice).
 
@@ -528,7 +525,7 @@ def gmres_solve(matvec: Callable[[Array], Array], b: Array, *,
 
     The Arnoldi basis ``V (m+1, n)`` is built with vectorized classical
     Gram-Schmidt *reorthogonalized once* (CGS2 — one extra ``V @ w`` pair,
-    which on TPU is two skinny matmuls instead of MGS's ``m`` serial
+    which is two skinny matmuls instead of MGS's ``m`` serial
     dots; CGS2 restores MGS-level orthogonality loss). The small
     ``(m+1, m)`` least-squares problem is solved densely per restart.
     Right preconditioning (``x = M^{-1} u``), like :func:`bicgstab_solve`.

@@ -7,7 +7,7 @@ solve; these provide ``min ||A x - b||^2 + damp^2 ||x||^2`` without ever
 forming ``A^T A`` (one SpMV + one transposed SpMV per iteration, both
 through whatever kernel the operator closure picked).
 
-TPU-first shape: fixed iteration counts under ``lax.scan`` (static
+Device-first shape: fixed iteration counts under ``lax.scan`` (static
 shapes, one compile), reductions as whole-vector dots (a single ``psum``
 each under sharding), scalar recurrences carried in the scan state. No
 reference counterpart (citibeth/spsparse has no solver layer).

@@ -7,7 +7,7 @@ the right tool whenever only ``f(A) @ v`` is needed).
 (the same one scipy.sparse.linalg.expm implements): degree selected by
 1-norm thresholds, matrix products through the framework's
 structure-dispatched :func:`spsparse_tpu.ops.spgemm.best_spgemm`
-(tiled MXU when dense enough, ESC otherwise), and the final rational
+(tiled when dense enough, ESC otherwise), and the final rational
 solve through the native :func:`spsparse_tpu.solvers.direct.splu`.
 Both functions are eager/host-orchestrated by design: the exponential
 and inverse of a sparse matrix generally fill in (capacities are

@@ -4,7 +4,7 @@
 (scipy.sparse.linalg.onenormest): a handful of block matvecs with ``A``
 and ``A^T`` instead of materializing columns, so it works for operator
 *products* (``inv``-free condition estimates, ``expm_multiply`` step-size
-selection) where the matrix never exists. TPU-first shape: the ``t``
+selection) where the matrix never exists. Device-first shape: the ``t``
 probe vectors ride a single ``(n, t)`` block through ``matmat`` (one
 fused pass), and the iteration count is static under ``lax.scan`` — the
 estimate is a lower bound that is almost always exact (Higham & Tisseur
@@ -37,7 +37,7 @@ def onenormest(A, *, t: int = 2, itmax: int = 5, seed: int = 0) -> Array:
     :class:`SparseCOO`, or any format ``aslinearoperator`` accepts.
     ``t`` probe columns, ``itmax`` forward/adjoint rounds — both static,
     so the whole estimator jits. Differences from scipy: fixed iteration
-    count (no early-exit/parallel-column resampling — on TPU the extra
+    count (no early-exit/parallel-column resampling — on a device the extra
     fixed rounds are cheaper than host round-trips), so in rare
     adversarial cases the estimate can be a slightly weaker lower bound.
     """

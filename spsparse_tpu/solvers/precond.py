@@ -1,11 +1,11 @@
-"""Preconditioners over the format zoo — the TPU-native menu.
+"""Preconditioners over the format zoo — the data-parallel menu.
 
 The reference library stops at the multiply chain (there is no solver or
 preconditioner code in ``/root/reference``); production regridding
 pipelines run Krylov iterations around those products, so this layer is
 part of the framework's end-to-end surface (ROADMAP item 9).
 
-On TPU the classic strong preconditioners (ILU(0), SSOR) were long
+On wide data-parallel hardware the classic strong preconditioners (ILU(0), SSOR) were long
 considered hostile: naive triangular solves are length-``n`` serial
 dependency chains. This module's menu avoids them entirely; since the
 direct tier landed, :func:`spsparse_tpu.solvers.spilu` *is* available
@@ -17,7 +17,7 @@ few fully-vectorized SpMV sweeps. Menu implemented here:
   elementwise inverse diagonal; free.
 * **Block-Jacobi** (:func:`block_jacobi_preconditioner`) — batched dense
   inverses of the ``bs x bs`` diagonal blocks, applied as one batched
-  matmul per iteration: exactly MXU-shaped work, and the standard
+  matmul per iteration: dense batched work, and the standard
   strength upgrade over Jacobi for banded/regridding operators.
 * **Neumann-series / polynomial** (:func:`neumann_preconditioner`) —
   ``M^-1 = sum_{i<k} (I - D^-1 A)^i D^-1``: ``k-1`` extra SpMVs through
@@ -132,8 +132,8 @@ def block_jacobi_preconditioner(a, bs: int = 128,
                                 eps: float = 1e-12) -> Callable:
     """Block-Jacobi ``z = M^{-1} r`` with ``bs x bs`` diagonal blocks.
 
-    Setup inverts the diagonal blocks once (batched ``jnp.linalg.inv`` —
-    MXU batched work); application is one batched ``(nb, bs, bs) @
+    Setup inverts the diagonal blocks once (batched ``jnp.linalg.inv``);
+    application is one batched ``(nb, bs, bs) @
     (nb, bs)`` matmul per iteration. Singular/empty blocks (zero rows,
     e.g. the zero padding of the last block) fall back to the Jacobi
     scaling of their diagonal so the operator stays SPD-definite.

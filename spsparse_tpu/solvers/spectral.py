@@ -1,6 +1,6 @@
 """Spectral solvers: symmetric eigenpairs and singular triplets over any
 matvec — the ``scipy.sparse.linalg.eigsh / lobpcg / svds`` capability tier,
-built TPU-first.
+built device-first.
 
 No reference counterpart (citibeth/spsparse stops at the multiply chain);
 these complete the iterative-solver story the way the reference's users
@@ -8,15 +8,16 @@ these complete the iterative-solver story the way the reference's users
 operators downstream: spectral bounds for Chebyshev, low-rank structure of
 regridding operators, truncated SVDs of interpolation matrices.
 
-TPU-first design decisions (vs the textbook/scipy formulations):
+Device-first design decisions (vs the textbook/scipy formulations):
 
 * **Everything is a fixed-iteration ``lax.fori_loop``/``scan``** — no
   data-dependent convergence breaks; shapes are static; one compile.
 * **Full reorthogonalization via CGS2** (two skinny ``(m, n) @ (n,)``
   matmuls per step) instead of modified Gram-Schmidt's serial dot chain —
-  the same MXU-shaped choice as :func:`~.iterative.gmres_solve`, and on
-  TPU it is *cheaper* than selective reorthogonalization's branchy
-  bookkeeping.
+  the same matmul-shaped choice as :func:`~.iterative.gmres_solve`, and
+  on a device it is *cheaper* than selective reorthogonalization's
+  branchy bookkeeping. Basis products run at full float32 precision
+  (:func:`_mm`).
 * **Small dense eigen/SVD problems** (the ``iters x iters`` tridiagonal /
   bidiagonal, LOBPCG's ``3k x 3k`` Rayleigh-Ritz) go through
   ``jnp.linalg`` — XLA runs these on-device; no host round trip.
@@ -42,13 +43,19 @@ __all__ = ["lanczos_eigsh", "arnoldi_eigs", "lobpcg_solve",
            "svds_lanczos", "funm_multiply", "expm_multiply"]
 
 
+def _mm(a: Array, b: Array) -> Array:
+    """Basis products at full precision (a GPU would run float32 ``@`` in
+    TF32, which breaks the reorthogonalization)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _cgs2(V: Array, w: Array, j, m: int):
     """Project ``w`` off the first ``j+1`` rows of ``V`` (CGS, applied
     twice). Rows past ``j`` are zero by construction so the mask keeps the
     projection exact under jit's static shapes."""
     mask = (jnp.arange(m) <= j).astype(w.dtype)
-    w = w - ((V @ w) * mask) @ V
-    w = w - ((V @ w) * mask) @ V
+    w = w - _mm(_mm(V, w) * mask, V)
+    w = w - _mm(_mm(V, w) * mask, V)
     return w
 
 
@@ -132,7 +139,7 @@ def lanczos_eigsh(matvec: Callable[[Array], Array], v0: Array, *,
     # zeroed V rows, so their LIFTED vectors have ~0 norm (Y's own columns
     # are always unit — eigh is orthonormal); lnorm is the live/dead
     # signal.
-    lifted = (V[:iters].T @ Y)                      # (n, iters)
+    lifted = _mm(V[:iters].T, Y)                    # (n, iters)
     lnorm = jnp.linalg.norm(lifted, axis=0)
     largest = which == "LA"
     w = _mask_dead_ritz(w, lnorm, largest)
@@ -172,8 +179,8 @@ def funm_multiply(matvec: Callable[[Array], Array], v: Array, *,
          + jnp.diag(beta[:-1], -1))
     w, Y = jnp.linalg.eigh(T)
     nrm = jnp.sqrt(jnp.vdot(v, v))
-    coeff = Y @ (jnp.asarray(f(w), Y.dtype) * Y[0, :])   # f(T) e_1
-    return nrm * (coeff @ V[:iters])
+    coeff = _mm(Y, jnp.asarray(f(w), Y.dtype) * Y[0, :])   # f(T) e_1
+    return nrm * _mm(coeff, V[:iters])
 
 
 def expm_multiply(matvec: Callable[[Array], Array], v: Array, *,
@@ -210,7 +217,7 @@ def lobpcg_solve(matmat: Callable[[Array], Array], X0: Array, *,
     preconditionable alternative to :func:`lanczos_eigsh` (the
     ``scipy.sparse.linalg.lobpcg`` capability).
 
-    TPU shape: the operator is applied to the whole ``(n, k)`` block at
+    Device shape: the operator is applied to the whole ``(n, k)`` block at
     once (amortizing the matrix stream exactly like
     :func:`~.iterative.cg_solve_mrhs`), and each iteration is one
     ``3k x 3k`` Rayleigh-Ritz problem built from two ``(n, 3k)`` skinny
@@ -239,22 +246,22 @@ def lobpcg_solve(matmat: Callable[[Array], Array], X0: Array, *,
         (rank-deficient) directions leave zero rows/cols in the whitened
         M whose spurious 0 eigenvalues would win the *smallest* selection;
         a large diagonal penalty pushes them past the far end instead."""
-        W, ok = _whiten(S.T @ S)
-        M = W.T @ (S.T @ AS) @ W
+        W, ok = _whiten(_mm(S.T, S))
+        M = _mm(_mm(W.T, _mm(S.T, AS)), W)
         big = jnp.asarray(1, M.dtype) / jnp.finfo(M.dtype).eps ** 2
         pen = jnp.where(ok, 0, -big if largest else big)
         M = M + jnp.diag(pen.astype(M.dtype))
         w, Y = jnp.linalg.eigh(M)
         if largest:
             w, Y = w[::-1], Y[:, ::-1]
-        C = W @ Y[:, :k]                                      # (cols, k)
+        C = _mm(W, Y[:, :k])                                  # (cols, k)
         return w[:k], C
 
     # Initial Rayleigh-Ritz on X0 alone.
     X = X0
     AX = matmat(X)
     lam, C = rr(X, AX)
-    X, AX = X @ C, AX @ C
+    X, AX = _mm(X, C), _mm(AX, C)
     P = jnp.zeros_like(X)
     AP = jnp.zeros_like(X)
 
@@ -264,20 +271,20 @@ def lobpcg_solve(matmat: Callable[[Array], Array], X0: Array, *,
         Wd = apply_m(R)
         # Project the preconditioned residual off X (keeps the Gram matrix
         # well-scaled; full orthonormality comes from the whitening).
-        Wd = Wd - X @ (X.T @ Wd)
+        Wd = Wd - _mm(X, _mm(X.T, Wd))
         wn = jnp.linalg.norm(Wd, axis=0)
         Wd = Wd / jnp.maximum(wn, 1e-30)[None, :]
         AW = matmat(Wd)
         S = jnp.concatenate([X, Wd, P], axis=1)               # (n, 3k)
         AS = jnp.concatenate([AX, AW, AP], axis=1)
         lam_new, C = rr(S, AS)
-        Xn = S @ C
-        AXn = AS @ C
+        Xn = _mm(S, C)
+        AXn = _mm(AS, C)
         # P = the W+P contribution to the new X (standard LOBPCG three-term
         # recurrence): zero the X-block rows of C.
         Cp = C.at[:k, :].set(0)
-        Pn = S @ Cp
-        APn = AS @ Cp
+        Pn = _mm(S, Cp)
+        APn = _mm(AS, Cp)
         return (Xn, AXn, Pn, APn, lam_new), lam_new
 
     (X, AX, _, _, lam), _ = jax.lax.scan(
@@ -349,8 +356,8 @@ def svds_lanczos(matvec: Callable[[Array], Array],
     B = jnp.diag(alpha) + jnp.diag(beta[:-1], 1)
     Pb, s, Qt = jnp.linalg.svd(B)               # B = Pb s Qt, descending
     # Dead directions: zero basis rows make lifted vectors short.
-    Uk_full = Ub.T @ Pb                          # (m, iters)
-    Vk_full = Vb.T @ Qt.T                        # (n, iters)
+    Uk_full = _mm(Ub.T, Pb)                      # (m, iters)
+    Vk_full = _mm(Vb.T, Qt.T)                    # (n, iters)
     un = jnp.linalg.norm(Uk_full, axis=0)
     vn = jnp.linalg.norm(Vk_full, axis=0)
     s = jnp.where((un > 0.5) & (vn > 0.5), s, 0)
@@ -386,10 +393,10 @@ def _arnoldi_decomp(matvec: Callable[[Array], Array], v0: Array,
         V, H, alive = carry
         w = matvec(V[j])
         mask = (jnp.arange(m + 1) <= j).astype(dt)
-        h1 = (V @ w) * mask
-        w = w - h1 @ V
-        h2 = (V @ w) * mask            # CGS second pass
-        w = w - h2 @ V
+        h1 = _mm(V, w) * mask
+        w = w - _mm(h1, V)
+        h2 = _mm(V, w) * mask          # CGS second pass
+        w = w - _mm(h2, V)
         h = h1 + h2
         b_ = jnp.sqrt(jnp.vdot(w, w))
         scale = jnp.maximum(jnp.max(jnp.abs(h)), 1)
@@ -423,10 +430,10 @@ def arnoldi_eigs(matvec: Callable[[Array], Array], v0: Array, *, k: int = 6,
     ``scipy.sparse.linalg.eigs`` capability (same ``which`` codes,
     complex output).
 
-    TPU-first split: the Krylov decomposition (matvecs + skinny CGS2
+    Host/device split: the Krylov decomposition (matvecs + skinny CGS2
     matmuls) runs on device (:func:`_arnoldi_decomp`); the small
     ``(iters, iters)`` Hessenberg eigenproblem runs on the host
-    (numpy — complex Schur work is not a TPU shape). Convergence is by
+    (numpy — complex Schur work is not a device shape). Convergence is by
     *explicit* restarts — the start vector is re-seeded with the sum of
     the wanted Ritz vectors and the decomposition re-run (``restarts``
     cycles, each one compile-cached) — rather than ARPACK's implicit

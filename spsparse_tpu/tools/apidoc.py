@@ -35,18 +35,14 @@ MODULES = [
     "spsparse_tpu.core.reorder",
     "spsparse_tpu.core.interop",
     "spsparse_tpu.core.validate",
+    "spsparse_tpu.core.backend",
     "spsparse_tpu.ops.multiply",
     "spsparse_tpu.ops.spgemm",
     "spsparse_tpu.ops.spgemm_tiled",
     "spsparse_tpu.ops.spmm",
     "spsparse_tpu.ops.spmv_kernels",
-    "spsparse_tpu.ops.spmv_shuffle",
     "spsparse_tpu.ops.general",
-    "spsparse_tpu.ops.pallas_dia",
-    "spsparse_tpu.ops.pallas_dia_chain",
-    "spsparse_tpu.ops.pallas_dia_mrhs",
-    "spsparse_tpu.ops.pallas_tiled",
-    "spsparse_tpu.ops.pallas_cg",
+    "spsparse_tpu.ops.block_spmm",
     "spsparse_tpu.ops.tiled_ops",
     "spsparse_tpu.io.netcdf",
     "spsparse_tpu.io.cdf",

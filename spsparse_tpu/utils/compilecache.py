@@ -1,64 +1,53 @@
 """Persistent XLA compilation cache plumbing.
 
-Large-shape programs on this class of machine pay a severe one-time
-compile cost (remote-compile service; sort-heavy shapes scale ~n^2.5 —
-docs/PERFORMANCE.md). Two mitigations compose:
+Large-shape programs pay a one-time compile cost (sort-heavy shapes most
+of all). JAX's persistent compilation cache turns it into a once-per-
+checkout cost; the repo-wide power-of-two capacity convention
+(``core.coo.round_up_pow2``) exists so that eager workloads with drifting
+nnz re-hit the same compiled programs, across processes too.
 
-1. the compile-bounded chunked formulations (:mod:`..core.chunksort`)
-   keep per-``lax.sort`` instances small so cold compiles stay flat in
-   ``n``;
-2. THIS module turns the residual cold cost into a once-per-machine cost
-   by enabling JAX's persistent compilation cache. The repo-wide
-   power-of-two capacity convention (``core.coo.round_up_pow2``; see
-   CLAUDE.md) exists precisely so that eager workloads with drifting nnz
-   re-hit the same compiled programs — combined with a disk cache they
-   re-hit them across *processes* too.
+Where the cache lives:
+
+* ``$JAX_COMPILATION_CACHE_DIR`` when it is set — JAX reads it itself,
+  and this module sets no other directory;
+* otherwise one fixed directory inside the checkout, ``<repo>/.jax_cache``
+  (listed in ``.gitignore``). The path is part of the cache's key, so it
+  never depends on a temp name, a pid or the time.
 
 Call :func:`enable_persistent_cache` once per process before the first
-backend use (it is safe afterwards too — JAX applies it to subsequent
-compiles). ``bench.py`` and the probes call it automatically.
+compile. ``bench.py`` and ``chip_smoke.py`` do.
 """
 
 from __future__ import annotations
 
 import os
 
-__all__ = ["enable_persistent_cache", "default_cache_dir"]
+__all__ = ["enable_persistent_cache", "cache_dir"]
 
-_ENV = "SPSPARSE_COMPILE_CACHE"
-
-
-def default_cache_dir() -> str:
-    """``$SPSPARSE_COMPILE_CACHE`` if set, else a per-user directory
-    under ``~/.cache``."""
-    env = os.environ.get(_ENV)
-    if env:
-        return env
-    return os.path.join(os.path.expanduser("~"), ".cache",
-                        "spsparse_tpu_xla")
+_ENV = "JAX_COMPILATION_CACHE_DIR"
+_REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 
 
-def enable_persistent_cache(path: str | None = None, *,
-                            min_compile_secs: float = 1.0) -> str:
-    """Enable JAX's on-disk compilation cache at ``path`` (created if
-    missing). Programs whose compile took >= ``min_compile_secs`` are
-    persisted and re-loaded by later processes, turning the multi-minute
-    large-sort compiles into a once-per-machine cost. Returns the cache
-    directory. Set ``$SPSPARSE_COMPILE_CACHE=off`` to disable."""
+def cache_dir() -> str:
+    """``$JAX_COMPILATION_CACHE_DIR`` if set, else ``<repo>/.jax_cache``."""
+    return os.environ.get(_ENV) or os.path.join(_REPO, ".jax_cache")
+
+
+def enable_persistent_cache(*, min_compile_secs: float = 1.0) -> str:
+    """Enable JAX's on-disk compilation cache at :func:`cache_dir`
+    (created if missing). Programs whose compile took at least
+    ``min_compile_secs`` are persisted and re-loaded by later processes.
+    Returns the cache directory."""
     import jax
 
-    env = os.environ.get(_ENV, "").lower()
-    if env in ("off", "0", "none"):
-        return ""
-    path = path or default_cache_dir()
+    path = cache_dir()
     os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    if not os.environ.get(_ENV):
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs",
                       float(min_compile_secs))
-    # cache regardless of backend (the default only caches some)
-    try:
-        jax.config.update("jax_persistent_cache_enable_xla_caches",
-                          "all")
-    except Exception:  # pragma: no cover - older jax without the knob
-        pass
+    # XLA's own caches keep JAX's default (the per-fusion autotune cache):
+    # adding the GPU kernel cache file ("all") made every multi-operand
+    # lax.sort fail to compile on an H200 (RET_CHECK in
+    # kernel_reuse_cache.cc).
     return path

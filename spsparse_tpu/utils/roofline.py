@@ -1,14 +1,15 @@
-"""Roofline accounting: bytes/FLOP models per op + speed-of-light targets.
+"""Roofline accounting: bytes/FLOP models per op + the device peak table.
 
-BASELINE.md mandates every kernel be roofline-audited against speed-of-light
-HBM bandwidth. This module centralizes the per-op traffic models and the
-per-chip bandwidth table used by ``bench.py`` and the tests.
+This module centralizes the per-op traffic models and the per-device peak
+table (:data:`PEAKS`, keyed by ``device_kind``) used by ``bench.py``,
+:mod:`spsparse_tpu.dist.model` and the tests. A device missing from the
+table is an error, never a default.
 
 Model conventions (all sizes in bytes):
 
-* SpMV-DIA: diagonal data streamed once; x read once per diagonal *window*
-  but XLA keeps it VMEM-resident for moderate n → counted once; y written.
-* SpMV-ELL: cols+vals streamed once; x counted once (VMEM-resident); y once.
+* SpMV-DIA: diagonal data streamed once; x read once per diagonal window
+  but served from cache for moderate n → counted once; y written.
+* SpMV-ELL: cols+vals streamed once; x counted once; y once.
 * SpMV-CSR: cols+vals+rowptr streamed; x gathered (counted once per nnz in
   the pessimistic model — CSR gathers are irregular); y once.
 * SpMM-ELL: cols+vals once; each nnz gathers one N-wide X row (the dominant
@@ -23,31 +24,50 @@ import dataclasses
 
 import jax
 
-__all__ = ["OpStats", "roofline", "device_hbm_bandwidth", "SOL_BW",
-           "spmv_dia_stats", "spmv_ell_stats", "spmv_csr_stats",
-           "spmm_ell_stats", "spgemm_esc_stats"]
+__all__ = ["DevicePeaks", "PEAKS", "device_peaks", "device_hbm_bandwidth",
+           "OpStats", "roofline", "spmv_dia_stats", "spmv_ell_stats",
+           "spmv_csr_stats", "spmm_ell_stats", "spgemm_esc_stats"]
 
-# Speed-of-light HBM bandwidth per chip (bytes/s), public figures.
-SOL_BW = {
-    "TPU v4": 1.2e12,
-    "TPU v5 lite": 8.19e11,
-    "TPU v5e": 8.19e11,
-    "TPU v5": 8.19e11,
-    "TPU v5p": 2.77e12,
-    "TPU v6 lite": 1.64e12,
-    "TPU v6e": 1.64e12,
-    "TPU v7": 7.4e12,
-    "cpu": 5.0e10,
+
+@dataclasses.dataclass(frozen=True)
+class DevicePeaks:
+    """Published peak rates of one device (dense, no sparsity)."""
+
+    hbm_bytes_s: float        # device memory bandwidth
+    bf16_flops: float         # tensor cores, bf16 in / f32 accumulate
+    tf32_flops: float         # tensor cores, TF32
+    f32_flops: float          # float32 outside the tensor cores
+    link_bytes_s: float       # NVLink to another card, each way
+    source: str
+
+
+_HOPPER = "NVIDIA data sheet and Hopper white paper, SXM part, 700 W"
+
+PEAKS = {
+    "NVIDIA H200": DevicePeaks(
+        hbm_bytes_s=4.8e12, bf16_flops=989e12, tf32_flops=495e12,
+        f32_flops=67e12, link_bytes_s=450e9, source=_HOPPER),
+    "NVIDIA H100 80GB HBM3": DevicePeaks(
+        hbm_bytes_s=3.35e12, bf16_flops=989e12, tf32_flops=495e12,
+        f32_flops=67e12, link_bytes_s=450e9, source=_HOPPER),
 }
 
 
-def device_hbm_bandwidth(device=None) -> tuple[str, float]:
-    d = device or jax.devices()[0]
-    kind = getattr(d, "device_kind", "cpu")
-    for k in sorted(SOL_BW, key=len, reverse=True):
-        if kind.startswith(k):
-            return kind, SOL_BW[k]
-    return kind, SOL_BW["cpu"]
+def device_peaks(device_kind: str | None = None) -> DevicePeaks:
+    """Peaks of ``device_kind`` (default: the default device's). Raises
+    ``KeyError`` for a device that is not in :data:`PEAKS`."""
+    kind = device_kind or jax.devices()[0].device_kind
+    if kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {kind!r}; "
+                       f"known: {sorted(PEAKS)}")
+    return PEAKS[kind]
+
+
+def device_hbm_bandwidth(device_kind: str | None = None) -> tuple[str, float]:
+    """``(device_kind, peak device-memory bytes/s)``; raises for an
+    unknown device."""
+    kind = device_kind or jax.devices()[0].device_kind
+    return kind, device_peaks(kind).hbm_bytes_s
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +86,11 @@ class OpStats:
         return self.nnz / self.sol_time(bw)
 
 
-def roofline(stats: OpStats, time_s: float, device=None) -> dict:
-    """Measured time → achieved vs speed-of-light summary dict."""
-    kind, bw = device_hbm_bandwidth(device)
+def roofline(stats: OpStats, time_s: float,
+             device_kind: str | None = None) -> dict:
+    """Measured time → achieved vs speed-of-light summary dict (memory
+    bound: bytes over the device's peak bandwidth)."""
+    kind, bw = device_hbm_bandwidth(device_kind)
     achieved = stats.nnz / time_s
     sol = stats.sol_nnz_per_s(bw)
     return {

@@ -1,6 +1,6 @@
 """Accumulator-combinator tests (reference accum.hpp semantics) plus the
 determinism contract (SURVEY §5: bitwise-same outputs across runs replaces
-race detection on TPU)."""
+race detection on an accelerator)."""
 
 import numpy as np
 

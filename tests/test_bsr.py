@@ -1,4 +1,4 @@
-"""BSR view + MXU SpMM tests."""
+"""BSR view + block SpMM tests."""
 
 import numpy as np
 import pytest

@@ -1,8 +1,8 @@
 """Compile-bounded chunked sorting (core.chunksort).
 
 These run with tiny chunk sizes so the multi-chunk code paths execute at
-test scale; the compile-time claim itself is pinned on TPU by
-probes/probe_compile_scaling_r4.py.
+test scale; the compile-time bound itself is a property of full-size
+shapes, not of these tests.
 """
 
 import numpy as np

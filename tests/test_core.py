@@ -380,7 +380,7 @@ class TestUtils:
         s = spmv_dia_stats(11, 1 << 20)
         assert s.nnz == 11 * (1 << 20)
         assert s.bytes_moved == s.nnz * 4 + (1 << 20) * 8
-        r = roofline(s, 1e-3)
+        r = roofline(s, 1e-3, device_kind="NVIDIA H200")
         assert r["nnz_per_s"] == s.nnz / 1e-3
         assert 0 < r["pct_of_roofline"]
         for st in (spmv_ell_stats(100, 8), spmv_csr_stats(1000, 100),

@@ -1,4 +1,4 @@
-"""Distributed tiled MXU SpGEMM on the 8-device virtual mesh."""
+"""Distributed tiled SpGEMM on the 8-device virtual mesh."""
 
 import numpy as np
 import pytest

@@ -37,29 +37,27 @@ class TestPrepareGeneral:
         # gather regime needs many block rows sharing scattered columns
         # (lambda ~ 1 entry/column), where packing can't raise fill.
         packable = random_coo(rng, (512, 8192), 2000)
-        assert prepare_general(packable).kernel in ("one_hot",
-                                                    "dense_block")
+        assert prepare_general(packable).kernel in ("dense_block",
+                                                    "gather_ell", "gather")
         scattered = random_coo(rng, (4096, 32768), 32768)
         assert prepare_general(scattered).kernel in ("gather", "gather_ell")
         dense_ish = local_coo(rng, 512, 50)                # fill >> 64
-        # column-local + dense fill routes to the super-row window
-        # kernel (round 4); wide-window layouts fall back to dense_block
-        assert prepare_general(dense_ish).kernel in ("dense_window",
-                                                     "dense_block")
-        # mid fill (GATHER..DENSE window): 40 entries in each diagonal tile
+        assert prepare_general(dense_ish).kernel == "dense_block"
+        # mid fill (40 entries in each diagonal tile, below the
+        # dense-block threshold): a row-gather layout
         bld = CooBuilder((512, 512), dtype=np.float32)
         for blk in range(4):
             r = blk * 128 + np.arange(40)
             bld.add_many(np.stack([r, r], 1),
                          rng.uniform(-1, 1, 40).astype(np.float32))
-        assert prepare_general(bld.build()).kernel == "one_hot"
+        assert prepare_general(bld.build()).kernel in ("gather",
+                                                       "gather_ell")
 
     def test_gather_layout_matches_dense_and_grads(self, rng):
         import jax
         A = random_coo(rng, (4096, 32768), 32768)
         pg = prepare_general(A)
-        # round 5: bounded row lengths route to the ELL reduce (the
-        # segment_sum was the measured bottleneck, not the gather)
+        # bounded row lengths route to the ELL reduce
         assert pg.kernel == "gather_ell" and pg.order is None
         X = rng.uniform(-1, 1, (A.shape[1], 16)).astype(np.float32)
         Y = spmm_general(pg, jnp.asarray(X))
@@ -108,8 +106,8 @@ class TestPrepareGeneral:
 
     def test_bf16_with_low_fill_routes_ell(self, rng):
         # Shared columns across many row blocks keep fill low even after
-        # packing -> gather regime. Round 5: bounded rows take the ELL
-        # layout, which HONORS the bf16 request (vals stored bf16, f32
+        # packing -> gather regime. Bounded rows take the ELL layout,
+        # which HONORS the bf16 request (vals stored bf16, f32
         # accumulate) instead of warning.
         A = random_coo(rng, (2048, 16384), 16384)
         pg = prepare_general(A, dtype=jnp.bfloat16)
@@ -144,7 +142,7 @@ class TestPrepareGeneral:
     def test_bf16_mode(self, rng):
         A = local_coo(rng, 256, 40)
         pg = prepare_general(A, dtype=jnp.bfloat16)
-        assert pg.kernel in ("dense_window", "dense_block")
+        assert pg.kernel == "dense_block"
         X = rng.uniform(-1, 1, (A.shape[1], 64)).astype(np.float32)
         Y = spmm_general(pg, jnp.asarray(X), interpret=True)
         np.testing.assert_allclose(np.asarray(Y),

@@ -1,8 +1,8 @@
 """core.joinfill: sort-based join primitives + the join ESC expansion.
 
-The join path is the TPU-default expansion (XLA per-element gathers run
-~0.09 Gelem/s there); on CPU these tests exercise it explicitly and pin
-equivalence with the gather formulation.
+The join path is an alternative ESC expansion to the per-element gather
+(the default on every backend); these tests exercise it explicitly and
+pin equivalence with the gather formulation.
 """
 import numpy as np
 import pytest

@@ -1,16 +1,14 @@
-"""Pallas kernel tests (interpret mode on CPU; compiled path exercised by
-bench/probes on real TPU)."""
+"""Structured-layout SpMV/SpMM tests: the fused DIA path, the block SpMM
+(Hopper kernel in the Pallas interpreter, and its plain XLA form), the
+dispatch, and their gradients. The compiled kernels run in tests_gpu/."""
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from spsparse_tpu import CooBuilder, to_csr
-from spsparse_tpu.ops.pallas_segsum import (
-    max_entries_per_rowblock,
-    spmv_csr_pallas,
-)
 
 
 def random_csr(rng, n, m, nnz):
@@ -20,125 +18,24 @@ def random_csr(rng, n, m, nnz):
     return b.build(), to_csr(b.build())
 
 
-class TestSegsumKernel:
-    def test_matches_dense(self, rng):
-        A, csr = random_csr(rng, 500, 300, 4000)
-        x = rng.uniform(-1, 1, 300).astype(np.float32)
-        y = spmv_csr_pallas(csr, x, interpret=True)
-        np.testing.assert_allclose(np.asarray(y),
-                                   np.asarray(A.to_dense()) @ x,
-                                   rtol=2e-5, atol=2e-5)
-
-    def test_empty_rows_and_tail(self, rng):
-        # nrows not a multiple of rows_per_block; many empty rows
-        b = CooBuilder((1000, 50), dtype=np.float32)
-        b.add((999, 3), 2.0)
-        b.add((0, 1), 1.0)
-        A = b.build()
-        csr = to_csr(A)
-        x = np.ones(50, np.float32)
-        y = spmv_csr_pallas(csr, x, rows_per_block=256, interpret=True)
-        ref = np.asarray(A.to_dense()) @ x
-        np.testing.assert_allclose(np.asarray(y), ref, rtol=1e-6)
-
-    def test_skewed_rows(self, rng):
-        # One dense row forces a large entries_per_block
-        b = CooBuilder((64, 512), dtype=np.float32)
-        cols = rng.permutation(512)[:400]
-        b.add_many(np.stack([np.zeros(400, int), cols], 1),
-                   rng.uniform(-1, 1, 400).astype(np.float32))
-        b.add((63, 0), 5.0)
-        A = b.build()
-        csr = to_csr(A)
-        x = rng.uniform(-1, 1, 512).astype(np.float32)
-        y = spmv_csr_pallas(csr, x, rows_per_block=8, interpret=True)
-        np.testing.assert_allclose(np.asarray(y),
-                                   np.asarray(A.to_dense()) @ x,
-                                   rtol=2e-5, atol=2e-5)
-
-    def test_max_entries_helper(self):
-        rp = np.array([0, 2, 2, 7, 9, 9])
-        assert max_entries_per_rowblock(rp, 2) == 7  # rows 2,3 -> 7 entries
-        assert max_entries_per_rowblock(rp, 5) == 9
-        assert max_entries_per_rowblock(rp, 3) == 7  # rows 0-2; tail block has 2
-
-
-class TestTiledPallas:
-    def test_matches_dense_interpret(self, rng):
-        from spsparse_tpu.core.tiled import to_tiled
-        from spsparse_tpu.ops.pallas_tiled import (prepare_tiled_rows,
-                                                   spmm_tiled_pallas)
-        b = CooBuilder((520, 260), dtype=np.float32)
-        idx = np.stack([rng.integers(0, 520, 4000),
-                        rng.integers(0, 260, 4000)], 1)
-        b.add_many(idx, rng.uniform(-1, 1, 4000).astype(np.float32))
-        A = b.build()
-        prep = prepare_tiled_rows(to_tiled(A))
-        X = rng.uniform(-1, 1, (260, 128)).astype(np.float32)
-        Y = spmm_tiled_pallas(prep, jnp.asarray(X), interpret=True)
-        np.testing.assert_allclose(np.asarray(Y),
-                                   np.asarray(A.to_dense()) @ X,
-                                   rtol=2e-4, atol=2e-4)
-
-    def test_empty_rows(self, rng):
-        from spsparse_tpu.core.tiled import to_tiled
-        from spsparse_tpu.ops.pallas_tiled import (prepare_tiled_rows,
-                                                   spmm_tiled_pallas)
-        b = CooBuilder((400, 200), dtype=np.float32)
-        b.add((5, 7), 2.0)
-        b.add((399, 199), 3.0)
-        A = b.build()
-        prep = prepare_tiled_rows(to_tiled(A))
-        X = rng.uniform(-1, 1, (200, 8)).astype(np.float32)
-        Y = spmm_tiled_pallas(prep, jnp.asarray(X), interpret=True)
-        np.testing.assert_allclose(np.asarray(Y),
-                                   np.asarray(A.to_dense()) @ X,
-                                   rtol=1e-5, atol=1e-6)
-
-
-class TestCgMegakernel:
-    def test_solves_spd_tridiagonal(self, rng):
-        from spsparse_tpu.core.dia import to_dia
-        from spsparse_tpu.ops.pallas_cg import cg_solve_dia_pallas
-        n = 1500
-        b = CooBuilder((n, n), dtype=np.float32)
-        main = rng.uniform(2.5, 3.5, n).astype(np.float32)
-        off1 = rng.uniform(-1, 1, n - 1).astype(np.float32)
-        b.add_many(np.stack([np.arange(n), np.arange(n)], 1), main)
-        b.add_many(np.stack([np.arange(n - 1), np.arange(1, n)], 1), off1)
-        b.add_many(np.stack([np.arange(1, n), np.arange(n - 1)], 1), off1)
-        A = b.build()
-        rhs = rng.uniform(-1, 1, n).astype(np.float32)
-        x, rs = cg_solve_dia_pallas(to_dia(A), rhs, iters=60, block=512,
-                                    interpret=True)
-        ref = np.linalg.solve(np.asarray(A.to_dense(), np.float64),
-                              rhs.astype(np.float64))
-        np.testing.assert_allclose(np.asarray(x, np.float64), ref,
-                                   rtol=1e-4, atol=1e-5)
-        assert float(rs) < 1e-8
-
-    def test_shift_term(self, rng):
-        from spsparse_tpu.core.dia import to_dia
-        from spsparse_tpu.ops.pallas_cg import cg_solve_dia_pallas
-        n = 600
-        b = CooBuilder((n, n), dtype=np.float32)
-        off1 = rng.uniform(-0.4, 0.4, n - 1).astype(np.float32)
-        b.add_many(np.stack([np.arange(n - 1), np.arange(1, n)], 1), off1)
-        b.add_many(np.stack([np.arange(1, n), np.arange(n - 1)], 1), off1)
-        A = b.build()  # no diagonal: SPD only thanks to the shift
-        rhs = rng.uniform(-1, 1, n).astype(np.float32)
-        x, rs = cg_solve_dia_pallas(to_dia(A), rhs, iters=80, shift=2.0,
-                                    block=512, interpret=True)
-        dense = np.asarray(A.to_dense(), np.float64) + 2.0 * np.eye(n)
-        ref = np.linalg.solve(dense, rhs.astype(np.float64))
-        np.testing.assert_allclose(np.asarray(x, np.float64), ref,
-                                   rtol=1e-4, atol=1e-5)
+def _dense_of_dia(data, offsets, n, m=None):
+    """Differentiable dense matrix of DIA ``data`` (rows i, cols i+off)."""
+    m = n if m is None else m
+    dense = jnp.zeros((n, m), jnp.float32)
+    for k, off in enumerate(offsets):
+        lo, hi = max(0, -off), min(n, m - off)
+        idx = jnp.arange(lo, hi)
+        dense = dense.at[idx, idx + off].set(data[k, lo:hi])
+    return dense
 
 
 class TestMrhsDia:
+    """Multi-RHS banded products: ``best_spmm`` on a ``SparseDIA`` reads
+    each diagonal once for all columns."""
+
     def test_matches_dense(self, rng):
         from spsparse_tpu.core.dia import to_dia
-        from spsparse_tpu.ops.pallas_dia_mrhs import spmm_dia_mrhs_pallas
+        from spsparse_tpu.ops import best_spmm
         n = 2000
         b = CooBuilder((n, n), dtype=np.float32)
         for off in (-2, 0, 1, 3):
@@ -146,107 +43,129 @@ class TestMrhsDia:
             b.add_many(np.stack([r, r + off], 1),
                        rng.uniform(-1, 1, r.size).astype(np.float32))
         A = b.build()
-        X = rng.uniform(-1, 1, (8, n)).astype(np.float32)
-        Y = spmm_dia_mrhs_pallas(to_dia(A), X, block=512, interpret=True)
-        ref = (np.asarray(A.to_dense()) @ X.T).T
+        X = rng.uniform(-1, 1, (n, 8)).astype(np.float32)
+        Y = best_spmm(to_dia(A), X)
+        ref = np.asarray(A.to_dense()) @ X
         np.testing.assert_allclose(np.asarray(Y), ref, rtol=2e-5, atol=2e-5)
 
     def test_too_many_rhs_raises(self, rng):
+        # the fused path has no RHS limit: 9 (formerly rejected) and 33
+        # right-hand sides both run and match the dense product
         from spsparse_tpu.core.dia import to_dia
-        from spsparse_tpu.ops.pallas_dia_mrhs import spmm_dia_mrhs_pallas
+        from spsparse_tpu.ops import best_spmm
         b = CooBuilder((64, 64), dtype=np.float32)
         b.add((0, 0), 1.0)
-        with pytest.raises(ValueError):
-            spmm_dia_mrhs_pallas(to_dia(b.build()),
-                                 np.ones((9, 64), np.float32),
-                                 interpret=True)
-
-
-class TestChainKernel:
-    def test_matches_repeated_application(self, rng):
-        from spsparse_tpu.core.dia import to_dia
-        from spsparse_tpu.ops.pallas_dia_chain import spmv_dia_chain_pallas
-        n = 1024
-        b = CooBuilder((n, n), dtype=np.float32)
-        for off in (-1, 0, 2):
-            r = np.arange(max(0, -off), min(n, n - off))
-            b.add_many(np.stack([r, r + off], 1),
-                       rng.uniform(-0.5, 0.5, r.size).astype(np.float32))
+        b.add((5, 7), 2.0)
         A = b.build()
-        x = rng.uniform(-1, 1, n).astype(np.float32)
-        y = spmv_dia_chain_pallas(to_dia(A), x, iters=3, scale=0.7,
-                                  block=256, interpret=True)
-        ref = x.astype(np.float64)
-        Ad = np.asarray(A.to_dense(), np.float64)
-        for _ in range(3):
-            ref = 0.7 * (Ad @ ref)
-        np.testing.assert_allclose(np.asarray(y, np.float64), ref,
-                                   rtol=1e-4, atol=1e-6)
+        for R in (9, 33):
+            X = rng.uniform(-1, 1, (64, R)).astype(np.float32)
+            np.testing.assert_allclose(
+                np.asarray(best_spmm(to_dia(A), X)),
+                np.asarray(A.to_dense()) @ X, rtol=1e-6, atol=1e-6)
 
 
-def _banded_dia(rng, n, offsets, dtype=np.float32):
+def _banded_dia(rng, n, offsets, dtype=np.float32, m=None):
     from spsparse_tpu.core.dia import SparseDIA
+    m = n if m is None else m
     offs = np.asarray(offsets)
     cols = np.arange(n)[:, None] + offs[None, :]
-    valid = (cols >= 0) & (cols < n)
+    valid = (cols >= 0) & (cols < m)
     vals = np.where(valid, rng.uniform(-1, 1, (n, offs.size)), 0).astype(dtype)
     return SparseDIA(data=jnp.asarray(vals.T.copy()),
-                     offsets=tuple(int(o) for o in offs), shape=(n, n))
+                     offsets=tuple(int(o) for o in offs), shape=(n, m))
 
 
 class TestDiaStreamingKernel:
-    """Interpret-mode coverage of the bench-headline kernel
-    (``spmv_dia_pallas``): VERDICT round-1 flagged it as untested."""
+    """The fused DIA expression (``spmv_dia``): shifted static windows of
+    one padded ``x``, summed over diagonals."""
 
     def test_matches_dense_odd_n(self, rng):
-        from spsparse_tpu.ops.pallas_dia import spmv_dia_pallas
-        n = 1000  # not a multiple of the block: exercises padding + trim
+        from spsparse_tpu.ops import spmv_dia
+        n = 1000  # odd sizes: exercises padding + trim
         dia = _banded_dia(rng, n, [-3, -1, 0, 2, 5])
         x = rng.uniform(-1, 1, n).astype(np.float32)
-        y = spmv_dia_pallas(dia, x, block=128, interpret=True)
+        y = spmv_dia(dia, x)
         np.testing.assert_allclose(
             np.asarray(y), np.asarray(dia.to_dense()) @ x, rtol=2e-5,
             atol=2e-5)
 
     def test_large_offsets_cross_pad_boundary(self, rng):
-        # |offset| > 128 forces pad > one lane group (aligned-window loads
-        # plus in-register rolls must still line up).
-        from spsparse_tpu.ops.pallas_dia import spmv_dia_pallas
+        from spsparse_tpu.ops import spmv_dia
         n = 2048
         dia = _banded_dia(rng, n, [-300, -129, -128, 0, 127, 128, 301])
         x = rng.uniform(-1, 1, n).astype(np.float32)
-        y = spmv_dia_pallas(dia, x, block=256, interpret=True)
+        y = spmv_dia(dia, x)
         np.testing.assert_allclose(
             np.asarray(y), np.asarray(dia.to_dense()) @ x, rtol=2e-5,
             atol=2e-5)
 
     def test_bf16_data_path(self, rng):
-        from spsparse_tpu.ops.pallas_dia import prepare_dia, spmv_dia_pallas
+        from spsparse_tpu.ops import prepare_dia, spmv_dia
         n = 512
         dia = _banded_dia(rng, n, [-2, 0, 1])
-        prep = prepare_dia(dia, block=128, dtype=jnp.bfloat16)
-        assert prep.data3.dtype == jnp.bfloat16
-        # bf16 sublane tiling: diagonal count padded to 16
-        assert prep.data3.shape[1] == 16
+        prep = prepare_dia(dia, dtype=jnp.bfloat16)
+        assert prep.data.dtype == jnp.bfloat16
         x = rng.uniform(-1, 1, n).astype(np.float32)
-        y = spmv_dia_pallas(prep, x, interpret=True)
+        y = spmv_dia(prep, x)
+        assert y.dtype == jnp.float32          # accumulates in f32
         ref = np.asarray(dia.to_dense()).astype(np.float32) @ x
+        # bf16 diagonals: ~3 significant digits per term, 3 terms/row
         np.testing.assert_allclose(np.asarray(y), ref, rtol=2e-2, atol=2e-2)
 
     def test_prepared_reuse_matches_one_off(self, rng):
-        from spsparse_tpu.ops.pallas_dia import prepare_dia, spmv_dia_pallas
+        from spsparse_tpu.ops import best_spmv, prepare_dia
         n = 384
         dia = _banded_dia(rng, n, [-1, 0, 1])
-        prep = prepare_dia(dia, block=128)
+        prep = prepare_dia(dia)
         x = rng.uniform(-1, 1, n).astype(np.float32)
-        y1 = spmv_dia_pallas(dia, x, block=128, interpret=True)
-        y2 = spmv_dia_pallas(prep, x, interpret=True)
-        np.testing.assert_array_equal(np.asarray(y1), np.asarray(y2))
+        np.testing.assert_array_equal(np.asarray(best_spmv(dia, x)),
+                                      np.asarray(best_spmv(prep, x)))
+
+    @pytest.mark.parametrize("n,m,offsets", [
+        (300, 500, (-2, 0, 7, 250)),      # wide
+        (500, 300, (-250, -1, 0, 3)),     # tall
+        (64, 64, (-100, 0, 100)),         # out-of-range diagonals skipped
+        (1, 1, (0,)),
+    ])
+    def test_rectangular_and_degenerate(self, rng, n, m, offsets):
+        from spsparse_tpu.ops import spmv_dia
+        dia = _banded_dia(rng, n, offsets, m=m)
+        for x in (rng.uniform(-1, 1, m).astype(np.float32),
+                  rng.uniform(-1, 1, (m, 3)).astype(np.float32)):
+            np.testing.assert_allclose(
+                np.asarray(spmv_dia(dia, x)),
+                np.asarray(dia.to_dense()) @ x, rtol=2e-5, atol=2e-5)
+
+    def test_out_of_range_data_is_masked(self, rng):
+        # garbage (even NaN) stored outside the matrix must not leak in
+        from spsparse_tpu.core.dia import SparseDIA
+        from spsparse_tpu.ops import prepare_dia, spmv_dia
+        n = 16
+        data = np.ones((3, n), np.float32)
+        data[0, 0] = np.nan           # row 0 of offset -1: col -1
+        data[2, n - 1] = np.inf       # last row of offset +1: col n
+        dia = SparseDIA(data=jnp.asarray(data), offsets=(-1, 0, 1),
+                        shape=(n, n))
+        x = np.ones(n, np.float32)
+        ref = np.full(n, 3.0)
+        ref[0] = ref[-1] = 2.0
+        np.testing.assert_array_equal(np.asarray(spmv_dia(dia, x)), ref)
+        assert np.isfinite(np.asarray(prepare_dia(dia).data)).all()
+
+    def test_float64_stays_float64(self, rng):
+        from spsparse_tpu.ops import spmv_dia
+        dia = _banded_dia(rng, 200, (-1, 0, 1), dtype=np.float64)
+        x = rng.uniform(-1, 1, 200)
+        y = spmv_dia(dia, x)
+        assert y.dtype == jnp.float64
+        np.testing.assert_allclose(np.asarray(y),
+                                   np.asarray(dia.to_dense()) @ x,
+                                   rtol=1e-13, atol=1e-13)
 
 
 class TestBestSpmvDispatch:
     """``best_spmv`` must route every operand type to a correct
-    implementation (VERDICT round-1: the dispatcher had zero tests)."""
+    implementation."""
 
     def _oracle(self, dense, x):
         return np.asarray(dense) @ np.asarray(x)
@@ -260,10 +179,10 @@ class TestBestSpmvDispatch:
                                    rtol=1e-5, atol=1e-5)
 
     def test_prepared_dia_operand(self, rng):
-        from spsparse_tpu.ops.pallas_dia import prepare_dia
+        from spsparse_tpu.ops import prepare_dia
         from spsparse_tpu.ops.spmv_kernels import best_spmv
         dia = _banded_dia(rng, 256, [-2, 0, 1])
-        prep = prepare_dia(dia, block=128)
+        prep = prepare_dia(dia)
         x = rng.uniform(-1, 1, 256).astype(np.float32)
         np.testing.assert_allclose(np.asarray(best_spmv(prep, x)),
                                    self._oracle(dia.to_dense(), x),
@@ -281,63 +200,9 @@ class TestBestSpmvDispatch:
                                        err_msg=str(type(op)))
 
 
-class TestBitonicBlockSort:
-    """Interpret-mode coverage of ops.pallas_sort (the in-VMEM bitonic
-    block sort; Mosaic-compiled path exercised by probes + tests_tpu)."""
-
-    @pytest.mark.parametrize("R", [1, 8, 32])
-    def test_sorts_blocks_with_payload(self, rng, R):
-        from spsparse_tpu.ops.pallas_sort import sort_blocks
-        nblk = 3
-        k = rng.integers(0, 1 << 30, (nblk, R, 128)).astype(np.int32)
-        v = (k % 997).astype(np.float32)
-        ks, vs = sort_blocks((jnp.asarray(k), jnp.asarray(v)), num_keys=1,
-                             interpret=True)
-        for b in range(nblk):
-            flat = np.asarray(ks)[b].ravel()
-            assert (np.diff(flat) >= 0).all()
-            assert np.array_equal(np.sort(k[b].ravel()), flat)
-            np.testing.assert_array_equal(np.asarray(vs)[b].ravel(),
-                                          flat % 997)
-
-    def test_two_key_lexicographic(self, rng):
-        from spsparse_tpu.ops.pallas_sort import sort_blocks
-        k1 = rng.integers(0, 8, (2, 8, 128)).astype(np.int32)
-        k2 = rng.integers(0, 1 << 20, (2, 8, 128)).astype(np.int32)
-        s1, s2 = sort_blocks((jnp.asarray(k1), jnp.asarray(k2)), num_keys=2,
-                             interpret=True)
-        for b in range(2):
-            a = np.asarray(s1)[b].ravel().astype(np.int64)
-            c = np.asarray(s2)[b].ravel().astype(np.int64)
-            fused = a * (1 << 21) + c
-            assert (np.diff(fused) >= 0).all()
-
-    @pytest.mark.parametrize("packed", [True, False])
-    def test_stable_matches_numpy_stable_argsort(self, rng, packed):
-        from spsparse_tpu.ops.pallas_sort import sort_blocks_stable
-        kk = rng.integers(0, 8, (1, 8, 128)).astype(np.int32)
-        pos = np.arange(1024, dtype=np.int32).reshape(1, 8, 128)
-        sk, sp = sort_blocks_stable(
-            jnp.asarray(kk), (jnp.asarray(pos),),
-            key_bound=8 if packed else None, interpret=True)
-        ref = np.argsort(kk[0].ravel(), kind="stable")
-        np.testing.assert_array_equal(np.asarray(sp)[0].ravel(), ref)
-        np.testing.assert_array_equal(np.asarray(sk)[0].ravel(),
-                                      kk[0].ravel()[ref])
-
-    def test_bad_block_shape_raises(self):
-        from spsparse_tpu.ops.pallas_sort import sort_blocks
-        with pytest.raises(ValueError):
-            sort_blocks((jnp.zeros((1, 7, 128), jnp.int32),), num_keys=1,
-                        interpret=True)
-        with pytest.raises(ValueError):
-            sort_blocks((jnp.zeros((1, 8, 64), jnp.int32),), num_keys=1,
-                        interpret=True)
-
-
 class TestTiledDenseKernel:
-    """Dense-block tiled SpMM (ops.pallas_tiled dense variant): interpret
-    mode; compiled path covered by tests_tpu + probes."""
+    """Dense-block SpMM: the Hopper kernel in the Pallas interpreter and
+    the plain XLA form, against the dense oracle."""
 
     def _mat(self, rng, m=300, k=410, K=7):
         from spsparse_tpu import CooBuilder
@@ -350,39 +215,26 @@ class TestTiledDenseKernel:
 
     def test_matches_dense_oracle(self, rng):
         from spsparse_tpu.core.tiled import to_tiled
-        from spsparse_tpu.ops.pallas_tiled import spmm_tiled_dense_pallas
+        from spsparse_tpu.ops.block_spmm import spmm_tiled_dense
         A = self._mat(rng)
         X = rng.uniform(-1, 1, (410, 64)).astype(np.float32)
-        Y = np.asarray(spmm_tiled_dense_pallas(to_tiled(A), jnp.asarray(X),
-                                               interpret=True))
+        Y = np.asarray(spmm_tiled_dense(to_tiled(A), jnp.asarray(X),
+                                        interpret=True))
         ref = np.asarray(A.to_dense()) @ X
         np.testing.assert_allclose(Y, ref, atol=5e-5)
 
-    def test_agrees_with_onehot_kernel(self, rng):
-        from spsparse_tpu.core.tiled import to_tiled
-        from spsparse_tpu.ops.pallas_tiled import (spmm_tiled_dense_pallas,
-                                                   spmm_tiled_pallas)
-        A = self._mat(rng, m=150, k=200, K=5)
-        tl = to_tiled(A)
-        X = rng.uniform(-1, 1, (200, 32)).astype(np.float32)
-        Y1 = np.asarray(spmm_tiled_dense_pallas(tl, jnp.asarray(X),
-                                                interpret=True))
-        Y2 = np.asarray(spmm_tiled_pallas(tl, jnp.asarray(X),
-                                          interpret=True))
-        np.testing.assert_allclose(Y1, Y2, atol=5e-5)
-
     def test_bf16_blocks_f32_accumulate(self, rng):
-        # Mixed bf16/f32 mode (BASELINE config 3): blocks and X stream in
-        # bf16, products accumulate in f32.
+        # Mixed bf16/f32 mode: blocks and X stream in bf16, products
+        # accumulate in f32.
         from spsparse_tpu.core.tiled import to_tiled
-        from spsparse_tpu.ops.pallas_tiled import (prepare_tiled_dense,
-                                                   spmm_tiled_dense_pallas)
+        from spsparse_tpu.ops.block_spmm import (prepare_tiled_dense,
+                                                 spmm_tiled_dense)
         A = self._mat(rng, m=200, k=300, K=9)
         prep = prepare_tiled_dense(to_tiled(A), dtype=jnp.bfloat16)
         assert prep.blocks.dtype == jnp.bfloat16
         X = rng.uniform(-1, 1, (300, 32)).astype(np.float32)
-        Y = np.asarray(spmm_tiled_dense_pallas(prep, jnp.asarray(X),
-                                               interpret=True))
+        Y = np.asarray(spmm_tiled_dense(prep, jnp.asarray(X),
+                                        interpret=True))
         assert Y.dtype == np.float32
         ref = np.asarray(A.to_dense()) @ X
         # bf16 inputs: ~3 decimal digits; 9-term dots stay within ~1%.
@@ -391,7 +243,7 @@ class TestTiledDenseKernel:
     def test_duplicate_offsets_accumulate(self):
         from spsparse_tpu.core.coo import SparseCOO
         from spsparse_tpu.core.tiled import to_tiled
-        from spsparse_tpu.ops.pallas_tiled import prepare_tiled_dense
+        from spsparse_tpu.ops.block_spmm import prepare_tiled_dense
         idx = np.array([[1, 2], [1, 2], [0, 0]], np.int32)
         A = SparseCOO.from_arrays(idx, np.array([2.0, 3.0, 1.0], np.float32),
                                   (4, 4))
@@ -399,63 +251,60 @@ class TestTiledDenseKernel:
         blk = np.asarray(prep.blocks)[0, 0]
         assert blk[1, 2] == 5.0 and blk[0, 0] == 1.0
 
-    def test_wide_row_guard(self):
-        from spsparse_tpu.ops.pallas_tiled import (PreparedTiledDense,
-                                                   spmm_tiled_dense_pallas)
-        import pytest as _pytest
-        Rt = 300  # 2*300*64KB = 37.5 MiB > the 32 MiB double-buffer budget
+    def test_wide_row_guard(self, rng):
+        # No block-row width limit any more (the kernel keeps one block
+        # at a time): a row of 40 stored blocks runs and matches.
+        from spsparse_tpu.ops.block_spmm import (PreparedTiledDense,
+                                                 spmm_tiled_dense)
+        Rt = 40
+        blocks = rng.uniform(-1, 1, (1, Rt, 128, 128)).astype(np.float32)
         prep = PreparedTiledDense(
-            tcols=jnp.zeros((1, Rt), jnp.int32),
-            blocks=jnp.zeros((1, Rt, 128, 128), jnp.float32),
-            shape=(128, Rt * 128))
-        with _pytest.raises(ValueError):
-            spmm_tiled_dense_pallas(prep, jnp.zeros((Rt * 128, 8),
-                                                    jnp.float32),
-                                    interpret=True)
+            tcols=jnp.arange(Rt, dtype=jnp.int32)[None, :],
+            blocks=jnp.asarray(blocks), shape=(128, Rt * 128))
+        X = rng.uniform(-1, 1, (Rt * 128, 8)).astype(np.float32)
+        Y = spmm_tiled_dense(prep, jnp.asarray(X), interpret=True)
+        ref = np.concatenate(list(blocks[0]), axis=1) @ X
+        np.testing.assert_allclose(np.asarray(Y), ref, rtol=1e-4,
+                                   atol=1e-4)
 
 
 class TestKernelAutodiff:
-    """Custom VJPs for the Pallas kernels (pallas_call has no reverse-mode
-    rule of its own): grads must match a differentiable jnp reimplementation
-    of the same padded math. Round-2 capability — the fast kernels are now
-    usable inside jax.grad (solver parameter studies, regrid calibration)."""
+    """Gradients through the structured paths: the fused DIA expression
+    (plain autodiff) and the block SpMM's custom VJP, against a
+    differentiable jnp reimplementation of the same math."""
 
     def test_dia_spmv_grads_match_xla(self, rng):
-        import jax
         from spsparse_tpu.core.dia import SparseDIA
-        from spsparse_tpu.ops.pallas_dia import spmv_dia_pallas
-        from spsparse_tpu.ops.spmv_kernels import spmv_dia
+        from spsparse_tpu.ops import spmv_dia
         n = 300
         dia = _banded_dia(rng, n, (-7, -1, 0, 2, 130))
         x = jnp.asarray(rng.uniform(-1, 1, n).astype(np.float32))
         w = jnp.asarray(rng.uniform(-1, 1, n).astype(np.float32))
 
-        def loss_kernel(data, xc):
-            d = SparseDIA(data=data, offsets=dia.offsets, shape=dia.shape)
-            return jnp.vdot(w, spmv_dia_pallas(d, xc, block=128,
-                                               interpret=True))
-
-        def loss_ref(data, xc):
+        def loss_fused(data, xc):
             d = SparseDIA(data=data, offsets=dia.offsets, shape=dia.shape)
             return jnp.vdot(w, spmv_dia(d, xc))
 
-        gk = jax.grad(loss_kernel, argnums=(0, 1))(dia.data, x)
+        def loss_ref(data, xc):
+            return jnp.vdot(w, _dense_of_dia(data, dia.offsets, n) @ xc)
+
+        gk = jax.grad(loss_fused, argnums=(0, 1))(dia.data, x)
         gr = jax.grad(loss_ref, argnums=(0, 1))(dia.data, x)
+        # the fused path zeroes out-of-matrix slots of d_data; so does the
+        # dense form (those slots never reach a dense entry)
         np.testing.assert_allclose(gk[0], gr[0], rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(gk[1], gr[1], rtol=1e-5, atol=1e-6)
 
     def test_dia_spmv_grad_under_jit(self, rng):
-        import jax
-        from spsparse_tpu.ops.pallas_dia import prepare_dia, spmv_dia_pallas
+        from spsparse_tpu.ops import best_spmv, prepare_dia
         n = 200
         dia = _banded_dia(rng, n, (-1, 0, 1))
-        prep = prepare_dia(dia, block=128)
+        prep = prepare_dia(dia)
         x = jnp.asarray(rng.uniform(-1, 1, n).astype(np.float32))
 
         @jax.jit
         def g(xc):
-            return jax.grad(lambda v: jnp.sum(
-                spmv_dia_pallas(prep, v, interpret=True) ** 2))(xc)
+            return jax.grad(lambda v: jnp.sum(best_spmv(prep, v) ** 2))(xc)
 
         Ad = np.asarray(dia.to_dense())
         y = Ad @ np.asarray(x)
@@ -463,90 +312,48 @@ class TestKernelAutodiff:
         np.testing.assert_allclose(g(x), ref, rtol=1e-4, atol=1e-5)
 
     def test_mrhs_grads_match_dense(self, rng):
-        import jax
-        from spsparse_tpu.core.dia import SparseDIA, to_dia
-        from spsparse_tpu.ops.pallas_dia_mrhs import spmm_dia_mrhs_pallas
+        from spsparse_tpu.core.dia import SparseDIA
+        from spsparse_tpu.ops import best_spmm
         n = 260
         dia = _banded_dia(rng, n, (-2, 0, 3))
-        X = jnp.asarray(rng.uniform(-1, 1, (3, n)).astype(np.float32))
-        W = jnp.asarray(rng.uniform(-1, 1, (3, n)).astype(np.float32))
+        X = jnp.asarray(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
+        W = jnp.asarray(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
 
-        def loss_kernel(data, Xc):
+        def loss_fused(data, Xc):
             d = SparseDIA(data=data, offsets=dia.offsets, shape=dia.shape)
-            return jnp.sum(W * spmm_dia_mrhs_pallas(d, Xc, block=128,
-                                                    interpret=True))
+            return jnp.sum(W * best_spmm(d, Xc))
 
         def loss_ref(data, Xc):
-            dense = jnp.zeros((n, n), jnp.float32)
-            for k, off in enumerate(dia.offsets):
-                lo, hi = max(0, -off), min(n, n - off)
-                idx = jnp.arange(lo, hi)
-                dense = dense.at[idx, idx + off].set(data[k, lo:hi])
-            return jnp.sum(W * (Xc @ dense.T))
+            return jnp.sum(W * (_dense_of_dia(data, dia.offsets, n) @ Xc))
 
-        gk = jax.grad(loss_kernel, argnums=(0, 1))(dia.data, X)
+        gk = jax.grad(loss_fused, argnums=(0, 1))(dia.data, X)
         gr = jax.grad(loss_ref, argnums=(0, 1))(dia.data, X)
         np.testing.assert_allclose(gk[0], gr[0], rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(gk[1], gr[1], rtol=1e-5, atol=1e-6)
 
     @staticmethod
-    def _tiled_prep(rng, kind):
+    def _tiled_prep(rng):
         from spsparse_tpu.core.tiled import to_tiled
-        from spsparse_tpu.ops.pallas_tiled import (prepare_tiled_dense,
-                                                   prepare_tiled_rows)
+        from spsparse_tpu.ops.block_spmm import prepare_tiled_dense
         n, m, nnz = 300, 400, 600
         b = CooBuilder((n, m), dtype=np.float32)
         idx = np.stack([rng.integers(0, n, nnz), rng.integers(0, m, nnz)], 1)
         b.add_many(idx, rng.uniform(-1, 1, nnz).astype(np.float32))
         A = b.build().consolidate((0, 1))
-        tl = to_tiled(A)
-        prep = (prepare_tiled_rows(tl) if kind == "rows"
-                else prepare_tiled_dense(tl))
-        return A, prep
-
-    def test_tiled_onehot_grads_match_padded_ref(self, rng):
-        import dataclasses
-        import jax
-        from spsparse_tpu.ops.pallas_tiled import TILE, spmm_tiled_pallas
-        A, prep = self._tiled_prep(rng, "rows")
-        N = 16
-        X = jnp.asarray(rng.uniform(-1, 1, (A.shape[1], N))
-                        .astype(np.float32))
-        W = jnp.asarray(rng.uniform(-1, 1, (A.shape[0], N))
-                        .astype(np.float32))
-        nbr, Rt = prep.tcols.shape
-        nbc = prep.nbc
-
-        def loss_kernel(vals, Xc):
-            p = dataclasses.replace(prep, vals=vals)
-            return jnp.sum(W * spmm_tiled_pallas(p, Xc, interpret=True))
-
-        def loss_ref(vals, Xc):
-            # same padded math, plain jnp (differentiable): padding slots
-            # at (0,0) with val 0 included, sentinel tiles skipped.
-            Xp = jnp.pad(Xc, ((0, nbc * TILE - Xc.shape[0]), (0, 0)))
-            y = jnp.zeros((nbr * TILE, N), jnp.float32)
-            tc = np.asarray(prep.tcols)
-            for b_ in range(nbr):
-                for t in range(Rt):
-                    if tc[b_, t] >= nbc:
-                        continue
-                    rg = b_ * TILE + prep.rows[b_, t]
-                    cg = tc[b_, t] * TILE + prep.cols[b_, t]
-                    y = y.at[rg].add(vals[b_, t][:, None] * Xp[cg])
-            return jnp.sum(W * y[: A.shape[0]])
-
-        gk = jax.grad(loss_kernel, argnums=(0, 1))(prep.vals, X)
-        gr = jax.grad(loss_ref, argnums=(0, 1))(prep.vals, X)
-        np.testing.assert_allclose(gk[0], gr[0], rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(gk[1], gr[1], rtol=1e-5, atol=1e-6)
+        return A, prepare_tiled_dense(to_tiled(A))
 
     def test_tiled_dense_grads_match_padded_ref(self, rng):
+        # the Hopper kernel (interpret mode) under the shared gradient rule
+        self._check_tiled_dense_grads(rng, interpret=True)
+
+    def test_tiled_dense_plain_grads_match_padded_ref(self, rng):
+        self._check_tiled_dense_grads(rng, interpret=False)
+
+    def _check_tiled_dense_grads(self, rng, interpret):
         import dataclasses
-        import jax
-        from spsparse_tpu.ops.pallas_tiled import (TILE,
-                                                   spmm_tiled_dense_pallas)
-        A, prep = self._tiled_prep(rng, "dense")
+        from spsparse_tpu.core.tiled import TILE
+        from spsparse_tpu.ops.block_spmm import spmm_tiled_dense
+        A, prep = self._tiled_prep(rng)
         N = 16
         X = jnp.asarray(rng.uniform(-1, 1, (A.shape[1], N))
                         .astype(np.float32))
@@ -557,8 +364,7 @@ class TestKernelAutodiff:
 
         def loss_kernel(blocks, Xc):
             p = dataclasses.replace(prep, blocks=blocks)
-            return jnp.sum(W * spmm_tiled_dense_pallas(p, Xc,
-                                                       interpret=True))
+            return jnp.sum(W * spmm_tiled_dense(p, Xc, interpret=interpret))
 
         def loss_ref(blocks, Xc):
             Xp = jnp.pad(Xc, ((0, nbc * TILE - Xc.shape[0]), (0, 0)))
@@ -570,7 +376,8 @@ class TestKernelAutodiff:
                         continue
                     xt = Xp[tc[b_, t] * TILE:(tc[b_, t] + 1) * TILE]
                     y = y.at[b_ * TILE:(b_ + 1) * TILE].add(
-                        blocks[b_, t] @ xt)
+                        jnp.matmul(blocks[b_, t], xt,
+                                   precision=jax.lax.Precision.HIGHEST))
             return jnp.sum(W * y[: A.shape[0]])
 
         gk = jax.grad(loss_kernel, argnums=(0, 1))(prep.blocks, X)
@@ -579,11 +386,9 @@ class TestKernelAutodiff:
         np.testing.assert_allclose(gk[1], gr[1], rtol=1e-5, atol=1e-6)
 
     def test_grad_through_spmm_general_and_best_spmv(self, rng):
-        import jax
-        from spsparse_tpu.ops import best_spmv, prepare_general
+        from spsparse_tpu.ops import best_spmv, prepare_dia, prepare_general
         from spsparse_tpu.ops.general import spmm_general
-        from spsparse_tpu.ops.pallas_dia import prepare_dia
-        A, _ = self._tiled_prep(rng, "rows")
+        A, _ = self._tiled_prep(rng)
         pg = prepare_general(A)
         X = jnp.asarray(rng.uniform(-1, 1, (A.shape[1], 8))
                         .astype(np.float32))
@@ -594,7 +399,7 @@ class TestKernelAutodiff:
         np.testing.assert_allclose(g, ref, rtol=1e-4, atol=1e-5)
 
         dia = _banded_dia(rng, 256, (-1, 0, 1))
-        prep = prepare_dia(dia, block=128)
+        prep = prepare_dia(dia)
         x = jnp.asarray(rng.uniform(-1, 1, 256).astype(np.float32))
         gx = jax.grad(lambda v: jnp.sum(best_spmv(prep, v) ** 2))(x)
         Dd = np.asarray(dia.to_dense())
@@ -603,8 +408,8 @@ class TestKernelAutodiff:
 
 
 class TestMrhsDiaFastPath:
-    """Zero-copy mrhs entry: X (8, nblocks*block) f32 skips the padded-Xp
-    materialization — results and grads must be identical to the Xp path."""
+    """Multi-RHS DIA through ``best_spmm``: block-multiple and ragged row
+    counts, single-column agreement, and gradients."""
 
     def _dia(self, rng, n):
         from spsparse_tpu.core.dia import to_dia
@@ -616,52 +421,43 @@ class TestMrhsDiaFastPath:
         return to_dia(b.build())
 
     def test_fast_path_matches_dense(self, rng):
-        from spsparse_tpu.ops.pallas_dia_mrhs import spmm_dia_mrhs_pallas
-        n = 1024                      # exact multiple of block=512
+        from spsparse_tpu.ops import best_spmm
+        n = 1024
         dia = self._dia(rng, n)
-        X = rng.uniform(-1, 1, (8, n)).astype(np.float32)
-        Y = spmm_dia_mrhs_pallas(dia, X, block=512, interpret=True)
-        ref = (np.asarray(dia.to_dense()) @ X.T).T
+        X = rng.uniform(-1, 1, (n, 8)).astype(np.float32)
+        Y = best_spmm(dia, X)
+        ref = np.asarray(dia.to_dense()) @ X
         np.testing.assert_allclose(np.asarray(Y), ref, rtol=2e-5, atol=2e-5)
 
     def test_fast_path_matches_padded_path(self, rng):
-        """Same operator, n one short of the multiple (Xp path) vs exact
-        (fast path) on the shared leading entries — boundary handling in
-        the halo gather must agree with the zero-padded Xp."""
-        from spsparse_tpu.ops.pallas_dia_mrhs import (spmm_dia_mrhs_pallas,
-                                                      RHS_BLOCK)
+        """Each column of the multi-RHS product equals the single-vector
+        product of that column."""
+        from spsparse_tpu.ops import best_spmm, best_spmv
         n = 1536
         dia = self._dia(rng, n)
-        X8 = rng.uniform(-1, 1, (8, n)).astype(np.float32)
-        Yf = spmm_dia_mrhs_pallas(dia, X8, block=512, interpret=True)
-        # force the padded path: 7 RHS (R < RHS_BLOCK)
-        Yp = spmm_dia_mrhs_pallas(dia, X8[:7], block=512, interpret=True)
-        np.testing.assert_allclose(np.asarray(Yf)[:7], np.asarray(Yp),
-                                   rtol=1e-6, atol=1e-6)
+        X8 = rng.uniform(-1, 1, (n, 8)).astype(np.float32)
+        Yf = np.asarray(best_spmm(dia, X8))
+        for j in (0, 3, 7):
+            np.testing.assert_allclose(Yf[:, j],
+                                       np.asarray(best_spmv(dia, X8[:, j])),
+                                       rtol=1e-6, atol=1e-6)
 
     def test_fast_path_grads(self, rng):
-        import jax
-        from spsparse_tpu.core.dia import SparseDIA, to_dia
-        from spsparse_tpu.ops.pallas_dia_mrhs import spmm_dia_mrhs_pallas
+        from spsparse_tpu.core.dia import SparseDIA
+        from spsparse_tpu.ops import best_spmm
         n = 512
         dia = self._dia(rng, n)
-        X = jnp.asarray(rng.uniform(-1, 1, (8, n)).astype(np.float32))
-        W = jnp.asarray(rng.uniform(-1, 1, (8, n)).astype(np.float32))
+        X = jnp.asarray(rng.uniform(-1, 1, (n, 8)).astype(np.float32))
+        W = jnp.asarray(rng.uniform(-1, 1, (n, 8)).astype(np.float32))
 
-        def loss_kernel(data, Xc):
+        def loss_fused(data, Xc):
             d = SparseDIA(data=data, offsets=dia.offsets, shape=dia.shape)
-            return jnp.sum(W * spmm_dia_mrhs_pallas(d, Xc, block=512,
-                                                    interpret=True))
+            return jnp.sum(W * best_spmm(d, Xc))
 
         def loss_ref(data, Xc):
-            dense = jnp.zeros((n, n), jnp.float32)
-            for k, off in enumerate(dia.offsets):
-                lo, hi = max(0, -off), min(n, n - off)
-                idx = jnp.arange(lo, hi)
-                dense = dense.at[idx, idx + off].set(data[k, lo:hi])
-            return jnp.sum(W * (Xc @ dense.T))
+            return jnp.sum(W * (_dense_of_dia(data, dia.offsets, n) @ Xc))
 
-        gk = jax.grad(loss_kernel, argnums=(0, 1))(dia.data, X)
+        gk = jax.grad(loss_fused, argnums=(0, 1))(dia.data, X)
         gr = jax.grad(loss_ref, argnums=(0, 1))(dia.data, X)
         np.testing.assert_allclose(gk[0], gr[0], rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(gk[1], gr[1], rtol=1e-4, atol=1e-5)

@@ -464,19 +464,17 @@ class TestBatchedCG:
                                    rtol=1e-8, atol=1e-10)
 
     def test_over_sparse_mrhs_operator(self, rng):
-        # End-to-end over the DIA multi-RHS Pallas kernel (interpret mode),
-        # the operator this solver exists to amortize.
+        # End-to-end over the multi-RHS DIA product (each diagonal read
+        # once for all columns), the operator this solver exists to
+        # amortize.
         from spsparse_tpu.core.dia import to_dia
-        from spsparse_tpu.ops.pallas_dia_mrhs import spmm_dia_mrhs_pallas
+        from spsparse_tpu.ops import best_spmm, prepare_dia
         from spsparse_tpu.solvers import cg_solve_mrhs
         n = 256
         A, coo = spd_banded(rng, n, band=2, dtype=np.float32)
-        dia = to_dia(coo)
+        dia = prepare_dia(to_dia(coo), dtype=jnp.float32)
         B = jnp.asarray(rng.uniform(-1, 1, (n, 8)).astype(np.float32))
-        # the mrhs kernel is row-layout (R, n); adapt with transposes
-        X, rs = cg_solve_mrhs(
-            lambda M: spmm_dia_mrhs_pallas(dia, M.T, interpret=True).T,
-            B, iters=30)
+        X, rs = cg_solve_mrhs(lambda M: best_spmm(dia, M), B, iters=30)
         np.testing.assert_allclose(
             np.asarray(X), np.linalg.solve(A, np.asarray(B)),
             rtol=2e-4, atol=2e-4)

@@ -1,4 +1,4 @@
-"""Tiled MXU SpGEMM vs dense oracle (ops/spgemm_tiled.py).
+"""Tiled SpGEMM vs dense oracle (ops/spgemm_tiled.py).
 
 Oracle pattern follows the reference's randomized differential testing
 (test_multiply_sparse.cpp:84-136): random sparse operands, sparse product
@@ -140,7 +140,7 @@ def test_tiled_blocks_to_dense_partial_edge_tiles():
 def test_tiled_blocks_feed_spmm_kernel():
     # C = A @ A^T (tiled) -> Y = C @ X via the dense-block SpMM kernel,
     # all in block form (no COO round trip).
-    from spsparse_tpu.ops.pallas_tiled import spmm_tiled_dense_pallas
+    from spsparse_tpu.ops.block_spmm import spmm_tiled_dense
     import jax.numpy as _jnp
     A = _rand_coo((300, 400), 700, 51)
     ta = densify_tiled(to_tiled(A))
@@ -149,8 +149,8 @@ def test_tiled_blocks_feed_spmm_kernel():
     prep = C.to_prepared_dense()
     rng = np.random.default_rng(5)
     X = rng.uniform(-1, 1, (300, 32)).astype(np.float32)
-    Y = np.asarray(spmm_tiled_dense_pallas(prep, _jnp.asarray(X),
-                                           interpret=True))
+    Y = np.asarray(spmm_tiled_dense(prep, _jnp.asarray(X),
+                                    interpret=True))
     dA = _dense(A)
     want = (dA @ dA.T) @ X
     np.testing.assert_allclose(Y, want, rtol=1e-4, atol=1e-4)
@@ -206,3 +206,104 @@ def test_empty_plan_filler_is_sentinel(rng):
     assert int(out.tile_row[0]) >= -(-out.shape[0] // 128)
     np.testing.assert_array_equal(np.asarray(out.to_dense()),
                                   np.zeros(out.shape, np.float32))
+
+
+def _banded_coo(n, m, half, seed):
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(n), 2 * half + 1)
+    c = np.clip(r * m // n + np.tile(np.arange(-half, half + 1), n), 0,
+                m - 1)
+    b = CooBuilder((n, m), dtype=np.float32)
+    b.add_many(np.stack([r, c], 1),
+               rng.uniform(-1, 1, r.size).astype(np.float32))
+    return b.build().consolidate((0, 1))
+
+
+@pytest.mark.parametrize("case", [
+    # (name, A shape, B shape, transpose_b, dtype, bm, bn)
+    ("square_nt", (260, 300), (300, 190), False, np.float32, 64, 64),
+    ("square_t", (260, 300), (190, 300), True, np.float32, 64, 64),
+    ("bf16_t", (200, 310), (170, 310), True, jnp.bfloat16, 64, 64),
+    ("bf16_nt", (200, 310), (310, 170), False, jnp.bfloat16, 64, 64),
+    ("full_tile_slabs", (256, 384), (256, 384), True, np.float32, 128, 128),
+    ("thin_slabs", (129, 257), (257, 129), False, np.float32, 32, 64),
+    ("wide_slabs", (300, 140), (140, 300), False, np.float32, 128, 64),
+    ("banded_gram", "banded", None, True, np.float32, 64, 64),
+])
+def test_pair_kernel_interpret_cases(case):
+    """The Hopper pair kernel (Pallas interpreter) equals the plain
+    batched-product + segment_sum form and the dense oracle: partial edge
+    tiles, both contraction modes, bf16/f32, every slab shape."""
+    from spsparse_tpu.ops.spgemm_tiled import (plan_pstart,
+                                               spgemm_pairs_pallas)
+    name, sa, sb, tb, dt, bm, bn = case
+    if sa == "banded":
+        A = _banded_coo(400, 800, 3, 11)
+        B = A
+    else:
+        A = _rand_coo(sa, 600, 21)
+        B = _rand_coo(sb, 500, 22)
+    ta = densify_tiled(to_tiled(A), dtype=dt)
+    tbk = densify_tiled(to_tiled(B), dtype=dt)
+    plan = plan_tiled_spgemm(ta, tbk, transpose_b=tb)
+    ref = spgemm_tiled_xla(ta, tbk, plan)
+    out = spgemm_pairs_pallas(
+        ta.blocks, tbk.blocks, jnp.asarray(plan_pstart(plan)),
+        jnp.asarray(plan.pa), jnp.asarray(plan.pb), transpose_b=tb,
+        n_out=plan.n_out_tiles, bm=bm, bn=bn, interpret=True)
+    assert out.dtype == jnp.float32
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref.blocks),
+                               rtol=1e-5, atol=1e-5)
+    want = _dense(A) @ (_dense(B).T if tb else _dense(B))
+    got = TiledBlocks(tile_row=ref.tile_row, tile_col=ref.tile_col,
+                      blocks=out, shape=plan.out_shape).to_dense()
+    # bf16 operands: 8 mantissa bits each, f32 accumulation
+    tol = 3e-2 if dt == jnp.bfloat16 else 1e-5
+    np.testing.assert_allclose(np.asarray(got), want, rtol=tol, atol=tol)
+
+
+def test_pair_kernel_empty_intersection():
+    # A's columns and B's rows never meet: no pairs, an empty product
+    A = _rand_coo((200, 256), 50, 31)
+    Ad = np.asarray(A.to_dense())
+    keep = np.argwhere(Ad[:, :128] != 0)
+    b = CooBuilder((200, 256), dtype=np.float32)
+    b.add_many(keep, Ad[keep[:, 0], keep[:, 1]].astype(np.float32))
+    A_left = b.build()
+    bb = CooBuilder((256, 90), dtype=np.float32)
+    bb.add((200, 5), 1.0)
+    bb.add((255, 80), 2.0)
+    B = bb.build()
+    C = spgemm_tiled(A_left, B, interpret=True)
+    assert int(C.nnz) == 0
+    C2 = spgemm_tiled(A_left, B, use_pallas=False)
+    assert int(C2.nnz) == 0
+
+
+@pytest.mark.parametrize("platform,dtype,expect_kernel", [
+    ("gpu", jnp.bfloat16, True), ("gpu", jnp.float32, False),
+    ("cpu", jnp.bfloat16, False), ("cpu", jnp.float32, False)])
+def test_spgemm_tiled_follows_dispatch(monkeypatch, platform, dtype,
+                                       expect_kernel):
+    """``use_pallas=None`` follows ``core.backend.use_gpu_kernels``: the
+    pair kernel runs for bf16 blocks on a GPU only."""
+    import importlib
+    backend = importlib.import_module("spsparse_tpu.core.backend")
+    st = importlib.import_module("spsparse_tpu.ops.spgemm_tiled")
+    calls = []
+    real = st.spgemm_tiled_pallas
+
+    def spy(A, B, plan, *, interpret=False):
+        calls.append(interpret)
+        return real(A, B, plan, interpret=True)
+
+    monkeypatch.setattr(backend, "default_platform", lambda: platform)
+    monkeypatch.setattr(st, "spgemm_tiled_pallas", spy)
+    A = _rand_coo((150, 200), 300, 41)
+    C = spgemm_tiled(A, A, transpose_b=True, dtype=dtype)
+    assert bool(calls) == expect_kernel
+    # bf16 operands: 8 mantissa bits each, f32 accumulation
+    tol = 3e-2 if dtype == jnp.bfloat16 else 1e-5
+    np.testing.assert_allclose(np.asarray(C.to_dense()),
+                               _dense(A) @ _dense(A).T, rtol=tol,
+                               atol=tol)

@@ -1,4 +1,5 @@
-"""Tiled one-hot COO format tests (general-matrix MXU path)."""
+"""Tiled one-hot COO format tests (the plain reference of the tiled COO
+format)."""
 
 import numpy as np
 import pytest
@@ -92,7 +93,7 @@ class TestPackColumns:
 
     def test_spmv_and_pallas_kernel_agree(self, rng):
         from spsparse_tpu.core.tiled import pack_columns
-        from spsparse_tpu.ops.pallas_tiled import spmm_tiled_pallas
+        from spsparse_tpu.ops.block_spmm import spmm_tiled_dense
         A = random_coo(rng, (256, 2048), 1500)
         Ap, order = pack_columns(A)
         tl = to_tiled(Ap)
@@ -102,7 +103,7 @@ class TestPackColumns:
                                    np.asarray(A.to_dense()) @ x,
                                    rtol=1e-4, atol=1e-4)
         X = rng.uniform(-1, 1, (2048, 128)).astype(np.float32)
-        Yk = spmm_tiled_pallas(tl, jnp.asarray(X)[order], interpret=True)
+        Yk = spmm_tiled_dense(tl, jnp.asarray(X)[order], interpret=True)
         np.testing.assert_allclose(np.asarray(Yk),
                                    np.asarray(A.to_dense()) @ X,
                                    rtol=1e-4, atol=1e-4)

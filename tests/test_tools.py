@@ -258,4 +258,4 @@ def test_apidoc_generates(tmp_path):
     assert n > 200
     text = out.read_text()
     assert "SparseCOO" in text and "consolidate" in text
-    assert "spmv_shuffle" in text
+    assert "block_spmm" in text and "use_gpu_kernels" in text

@@ -2,7 +2,7 @@
 
 No reference counterpart (a C++ template library has no autodiff); being
 transparently differentiable and batchable is a core capability of the
-TPU-native re-design — sparse operators drop into training loops.
+accelerator re-design — sparse operators drop into training loops.
 """
 
 import numpy as np
